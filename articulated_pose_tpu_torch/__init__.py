@@ -1,0 +1,26 @@
+"""PyTorch / CUDA port of articulated_pose_tpu for NVIDIA Hopper GPUs.
+
+The JAX package (`articulated_pose_tpu`) is the reference; every module
+here mirrors its counterpart there and is held against it by the
+`tests/test_torch_*.py` parity tests.  The three point-cloud kernels of
+the serving path (two-level FPS, fused ball query + grouping, 3-NN) are
+hand-written CUDA C++ under `csrc/`, built with nvcc at first use and
+bound with ctypes (`ops/kernels/`).  A CPU tensor takes each kernel's
+plain PyTorch version; a CUDA tensor takes the kernel.
+
+This package imports torch and numpy only: never jax, flax or the JAX
+package, so it runs on a GPU host that has none of them.
+"""
+
+import torch
+
+# Distance and RANSAC-scoring matmuls must stay full f32: TF32 keeps
+# ~3 decimal digits and flips radius / inlier decisions near the
+# boundary (the reference runs these contractions at Precision.HIGHEST).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from articulated_pose_tpu_torch.config import NetworkConfig  # noqa: E402
+from articulated_pose_tpu_torch.registry import CategorySpec, get_category  # noqa: E402
+
+__all__ = ["NetworkConfig", "CategorySpec", "get_category"]

@@ -1,0 +1,89 @@
+"""Serving configuration.
+
+Port of the `articulated_pose_tpu.config.NetworkConfig` fields that the
+forward + pose-fit path reads, with the same names and defaults.  The
+mixed-precision policy knobs of the reference (`head_compute_dtype`,
+`pool_compute_dtype`, `act_compute_dtype`, `f32_stages`) exist so that a
+config written for the JAX package is read the same way, but anything
+other than their defaults raises until they are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from articulated_pose_tpu_torch.registry import CategorySpec, get_category
+
+_UNPORTED_POLICY = ("head_compute_dtype", "pool_compute_dtype",
+                    "act_compute_dtype")
+
+
+@dataclasses.dataclass
+class NetworkConfig:
+    category: str = "eyeglasses"
+    nocs_type: str = "ancsh"           # 'ancsh' (part+global NOCS) | 'npcs'
+    n_max_parts: int = 3
+    num_points: int = 1024
+    pred_joint: bool = True
+    early_split_nocs: bool = True
+    dropout_rate: float = 0.5          # identity in eval; kept for parity
+    backbone_preset: str = "reference"  # 'reference' | 'tiny'
+    compute_dtype: str = "float32"     # 'float32' | 'bfloat16' trunk
+    head_compute_dtype: Optional[str] = None
+    pool_compute_dtype: Optional[str] = None
+    act_compute_dtype: Optional[str] = None
+    f32_stages: tuple = ()
+    batch_size: int = 16
+
+    ransac_niter_part: int = 128
+    ransac_niter_joint: int = 64
+    ransac_inlier_th: float = 0.1
+    seed: int = 0
+
+    def __post_init__(self):
+        for name in _UNPORTED_POLICY:
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"{name} is not ported yet (mixed-precision policy)")
+        if self.f32_stages:
+            raise NotImplementedError("f32_stages is not ported yet")
+        if self.nocs_type not in ("ancsh", "npcs"):
+            raise ValueError(
+                f"nocs_type must be 'ancsh' or 'npcs', got {self.nocs_type!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got "
+                f"{self.compute_dtype!r}")
+
+    @property
+    def is_mixed(self) -> bool:
+        """ANCSH mode regresses part + global NOCS."""
+        return self.nocs_type == "ancsh"
+
+    @property
+    def category_spec(self) -> CategorySpec:
+        return get_category(self.category)
+
+    def replace(self, **kw) -> "NetworkConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def load_config(path: Optional[str] = None, **overrides) -> NetworkConfig:
+    """Load a NetworkConfig from a flat YAML mapping, applying overrides.
+
+    Keys of the JAX package's config that serving does not read are
+    ignored, so one YAML file serves both packages.
+    """
+    fields = {}
+    if path is not None:
+        import yaml
+
+        with open(path) as f:
+            fields.update(yaml.safe_load(f) or {})
+    fields.update(overrides)
+    known = {f.name for f in dataclasses.fields(NetworkConfig)}
+    cfg = NetworkConfig(**{k: v for k, v in fields.items() if k in known})
+    if cfg.nocs_type == "npcs":
+        cfg = cfg.replace(pred_joint=False)
+    return cfg

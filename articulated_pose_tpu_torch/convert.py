@@ -1,0 +1,50 @@
+"""Weight bridge: Flax variables of the JAX model -> a port state_dict.
+
+The JAX side flattens its `{"params": ..., "batch_stats": ...}` tree to
+"/"-joined keys and saves it with `np.savez`; this module reads that
+mapping without JAX.  The port's module names follow the Flax tree, so
+the mapping is by name:
+
+    params/<path>/dense/kernel (Cin, Cout) -> <path>.dense.weight (Cout, Cin)
+    params/<path>/dense/bias               -> <path>.dense.bias
+    params/<path>/bn/scale | bias          -> <path>.bn.weight | bias
+    batch_stats/<path>/bn/mean | var       -> <path>.bn.running_mean | running_var
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_LEAVES = {
+    ("params", "dense", "kernel"): "dense.weight",
+    ("params", "dense", "bias"): "dense.bias",
+    ("params", "bn", "scale"): "bn.weight",
+    ("params", "bn", "bias"): "bn.bias",
+    ("batch_stats", "bn", "mean"): "bn.running_mean",
+    ("batch_stats", "bn", "var"): "bn.running_var",
+}
+
+
+def state_dict_from_flax(flat: Mapping[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """Flattened Flax variables -> state_dict of the matching port model."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        leaf = _LEAVES.get((parts[0], parts[-2], parts[-1]))
+        if leaf is None:
+            raise KeyError(f"unexpected Flax variable {key!r}")
+        arr = np.asarray(value, np.float32)
+        if leaf == "dense.weight":
+            arr = arr.T
+        out[".".join(parts[1:-2] + [leaf])] = torch.tensor(arr)
+    return out
+
+
+def load_flax_npz(path: str) -> Dict[str, torch.Tensor]:
+    """state_dict from an `np.savez` of the flattened Flax variables."""
+    with np.load(path) as f:
+        return state_dict_from_flax({k: f[k] for k in f.files})

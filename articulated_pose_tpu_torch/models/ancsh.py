@@ -1,0 +1,136 @@
+"""ANCSH multi-head model: counterpart of `articulated_pose_tpu/models/ancsh.py`.
+
+Heads over the shared PointNet++ per-point feature (all outputs f32):
+W (B, N, K) softmax, nocs_per_point (B, N, 3K) sigmoid, confi_per_point
+(B, N, 1) sigmoid; in ANCSH mode also global_scale (B, N, K) sigmoid,
+global_translation (B, N, 3K) tanh and gocs_per_point = nocs · scale
+(repeated 3× per part, interleaved) + translation; with pred_joint the
+joint head's joint_axis / unitvec (tanh), heatmap (sigmoid) and
+index_per_point (softmax).  Inference only; dropout is the identity.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from articulated_pose_tpu_torch.models.layers import PointConv, init_weights
+from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
+                                                         BackboneSpec,
+                                                         PointNet2Backbone)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _head(in_features: int, features: int, dtype) -> PointConv:
+    return PointConv(in_features, features, use_bn=False, relu=False,
+                     dtype=dtype)
+
+
+class JointHead(nn.Module):
+    """Joint-parameter head (lib/architecture.py:195-208)."""
+
+    def __init__(self, in_features: int, n_parts: int, dtype):
+        super().__init__()
+        self.fc3_0 = PointConv(in_features, 128, dtype=dtype)
+        self.fc3_1 = PointConv(128, 128, dtype=dtype)
+        self.fc4_0 = _head(128, 3, dtype)
+        self.fc4_1 = _head(128, 3, dtype)
+        self.fc4_2 = _head(128, 1, dtype)
+        self.fc4_3 = _head(128, n_parts, dtype)
+
+    def forward(self, feat: torch.Tensor):
+        x = self.fc3_1(self.fc3_0(feat))
+        joint_axis = torch.tanh(self.fc4_0(x).float())
+        unitvec = torch.tanh(self.fc4_1(x).float())
+        heatmap = torch.sigmoid(self.fc4_2(x).float())
+        joint_cls = torch.softmax(self.fc4_3(x).float(), dim=-1)
+        return joint_axis, unitvec, heatmap, joint_cls
+
+
+class ANCSHModel(nn.Module):
+    """Full per-point multi-head model; `mixed` selects ANCSH (part +
+    global NOCS) over NPCS (part NOCS only)."""
+
+    def __init__(self, n_max_parts: int = 3, mixed: bool = True,
+                 pred_joint: bool = True, early_split_nocs: bool = True,
+                 backbone_spec: BackboneSpec = BackboneSpec(),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        K = n_max_parts
+        self.n_max_parts = K
+        self.mixed = mixed
+        self.pred_joint = pred_joint
+        self.early_split_nocs = early_split_nocs
+        self.backbone = PointNet2Backbone(backbone_spec, dtype=dtype)
+        width = backbone_spec.head_width
+        out_dims = [K, 3 * K] + ([K, 3 * K] if mixed else []) + [1]
+        self.n_heads = len(out_dims)
+        for i, d in enumerate(out_dims):
+            cin = width
+            if early_split_nocs and i == 1:
+                # private branch for part-NOCS (lib/architecture.py:110-113)
+                self.add_module(f"fc11_{i}", _head(width, 128, dtype))
+                cin = 128
+            self.add_module(f"fc2_{i}", _head(cin, d, dtype))
+        if pred_joint:
+            self.joint_net = JointHead(width, K, dtype)
+
+    def forward(self, P: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feat = self.backbone(P)
+        results = []
+        for i in range(self.n_heads):
+            x = feat
+            if self.early_split_nocs and i == 1:
+                x = getattr(self, f"fc11_{i}")(x)
+            results.append(getattr(self, f"fc2_{i}")(x).float())
+        if self.mixed:
+            w_logits, nocs_logits, scale_logits, trans_logits, confi_logits = \
+                results
+        else:
+            w_logits, nocs_logits, confi_logits = results
+
+        nocs = torch.sigmoid(nocs_logits)
+        pred = {
+            "W": torch.softmax(w_logits, dim=-1),
+            "nocs_per_point": nocs,
+            "confi_per_point": torch.sigmoid(confi_logits),
+        }
+        if self.pred_joint:
+            joint_axis, unitvec, heatmap, joint_cls = self.joint_net(feat)
+            pred.update({
+                "joint_axis_per_point": joint_axis,
+                "unitvec_per_point": unitvec,
+                "heatmap_per_point": heatmap,
+                "index_per_point": joint_cls,
+            })
+        if self.mixed:
+            scale = torch.sigmoid(scale_logits)               # (B, N, K)
+            trans = torch.tanh(trans_logits)                  # (B, N, 3K)
+            # K -> 3K interleaved per part (architecture.py:154)
+            pred["gocs_per_point"] = (nocs * scale.repeat_interleave(3, dim=-1)
+                                      + trans)
+            pred["global_scale"] = scale
+            pred["global_translation"] = trans
+        return pred
+
+
+def build_model(config, generator: Optional[torch.Generator] = None,
+                device=None) -> ANCSHModel:
+    """The model of a NetworkConfig, in eval mode, with the reference's
+    initialisation drawn from `generator`."""
+    widths = TINY_WIDTHS if config.backbone_preset == "tiny" else {}
+    if config.backbone_preset not in ("tiny", "reference"):
+        raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
+    model = ANCSHModel(
+        n_max_parts=config.n_max_parts,
+        mixed=config.is_mixed,
+        pred_joint=config.pred_joint,
+        early_split_nocs=config.early_split_nocs,
+        backbone_spec=BackboneSpec(dropout_rate=config.dropout_rate, **widths),
+        dtype=DTYPES[config.compute_dtype],
+    )
+    init_weights(model, generator)
+    return model.to(device).eval()

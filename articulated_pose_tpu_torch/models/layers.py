@@ -1,0 +1,103 @@
+"""Pointwise layers: counterparts of `articulated_pose_tpu/models/layers.py`.
+
+Tensors are channels-last, (B, N, C) or (B, M, S, C), so a 1×1 conv is an
+`nn.Linear` over the last axis.  Parameters and batch-norm statistics stay
+f32; `dtype` is the compute dtype of the matmul and of what the layer
+emits.  Only inference is ported: batch norm uses its running statistics
+and the modules refuse to run in training mode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _eval_only(module: nn.Module) -> None:
+    if module.training:
+        raise NotImplementedError(
+            f"{type(module).__name__}: only inference is ported; call "
+            ".eval() first")
+
+
+class ScheduledBatchNorm(nn.Module):
+    """Inference batch norm over the last axis, eps 1e-3, stats in f32
+    (layers.py:26-60); the output is cast to `dtype`."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _eval_only(self)
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean) * inv + self.bias
+        return y.to(self.dtype)
+
+
+class PointConv(nn.Module):
+    """Pointwise Linear (+ batch norm) (+ ReLU), computed in `dtype`."""
+
+    def __init__(self, in_features: int, features: int, use_bn: bool = True,
+                 relu: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.relu = relu
+        self.dense = nn.Linear(in_features, features)
+        self.bn = ScheduledBatchNorm(features, dtype) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.linear(x.to(dt), self.dense.weight.to(dt),
+                     self.dense.bias.to(dt))
+        if self.bn is not None:
+            y = self.bn(y)
+        return F.relu(y) if self.relu else y
+
+
+class SharedMLP(nn.Module):
+    """A stack of PointConv layers named conv0, conv1, ... (as in Flax)."""
+
+    def __init__(self, in_features: int, channels: Sequence[int],
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.out_features = in_features
+        for i, ch in enumerate(channels):
+            self.add_module(f"conv{i}", PointConv(self.out_features, ch,
+                                                  dtype=dtype))
+            self.out_features = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.children():
+            x = layer(x)
+        return x
+
+
+def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None
+                 ) -> nn.Module:
+    """The reference's initialisation: Xavier-uniform Linear weights and
+    zero biases (layers.py:83-90), batch norm as identity; drawn from
+    `generator` so random weights are reproducible from a seed."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Linear):
+                fan_out, fan_in = m.weight.shape
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, ScheduledBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+    return model

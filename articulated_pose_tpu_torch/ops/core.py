@@ -1,0 +1,131 @@
+"""Plain PyTorch point-cloud ops: counterparts of `articulated_pose_tpu/ops/core.py`.
+
+These are the CPU path of every kernel wrapper in `ops/kernels/` and the
+oracle the CUDA kernels are held against on the card.  Distances are
+written out elementwise in a fixed operation order, because the kernels
+repeat that order with round-to-nearest intrinsics: with matched
+arithmetic the comparison on the card can demand exact indices.
+
+- `pairwise_sqdist` is the expansion form |a|² + |b|² − 2·a·b clamped at
+  0 (core.py:35-51), with the inner product (ax·bx + ay·by) + az·bz.
+- FPS uses the direct (x − lx)² sum (pallas/fps.py:146).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _sqnorm(a: torch.Tensor) -> torch.Tensor:
+    x, y, z = a.unbind(-1)
+    return (x * x + y * y) + z * z
+
+
+def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) x (..., M, 3) -> (..., N, M) squared euclidean distance."""
+    a = a.float()
+    b = b.float()
+    ax, ay, az = (v.unsqueeze(-1) for v in a.unbind(-1))
+    bx, by, bz = (v.unsqueeze(-2) for v in b.unbind(-1))
+    inner = (ax * bx + ay * by) + az * bz
+    d2 = _sqnorm(a).unsqueeze(-1) + _sqnorm(b).unsqueeze(-2) - 2.0 * inner
+    return torch.clamp_min(d2, 0.0)
+
+
+def farthest_point_sample(npoint: int, xyz: torch.Tensor) -> torch.Tensor:
+    """Iterative farthest point sampling. xyz (B, N, 3) -> (B, npoint) int32.
+
+    The first pick is index 0; each later pick maximises the running min
+    squared distance to the picked set, ties to the lowest index.
+    """
+    B, N, _ = xyz.shape
+    x, y, z = xyz.float().unbind(-1)                          # (B, N) each
+    mind = torch.full((B, N), 1e38, dtype=torch.float32, device=xyz.device)
+    picks = torch.zeros((B, npoint), dtype=torch.int64, device=xyz.device)
+    last = picks[:, :1]
+    for j in range(1, npoint):
+        dx = x - x.gather(1, last)
+        dy = y - y.gather(1, last)
+        dz = z - z.gather(1, last)
+        mind = torch.minimum(mind, (dx * dx + dy * dy) + dz * dz)
+        last = mind.argmax(dim=1, keepdim=True)               # first max
+        picks[:, j:j + 1] = last
+    return picks.to(torch.int32)
+
+
+def gather_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points (B, N, C), idx (B, M) -> (B, M, C)."""
+    idx = idx.long().unsqueeze(-1).expand(-1, -1, points.shape[-1])
+    return points.gather(1, idx)
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor):
+    """First-`nsample`-in-index-order ball query (core.py:86-123).
+
+    xyz (B, N, 3), new_xyz (B, M, 3) -> (idx (B, M, nsample) int32,
+    cnt (B, M) int32).  Hits are d² < r² (strict); slots past the hit
+    count hold the first hit; zero hits give index 0; cnt is capped at
+    nsample.  Each hit's slot is its exclusive prefix rank among hits,
+    scattered into an (nsample + 1)-wide buffer whose last column
+    absorbs every non-hit and every hit past nsample.
+    """
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    # r² rounded to f32 once, as a Python scalar: a host-made tensor
+    # would be a copy that waits for the stream
+    r2 = float(np.float32(radius * radius))
+    hit = pairwise_sqdist(new_xyz, xyz) < r2                  # (B, M, N)
+    rank = torch.cumsum(hit, dim=-1, dtype=torch.int32)       # inclusive
+    slot = torch.where(hit, rank - 1, nsample).clamp_max(nsample).long()
+    n_iota = torch.arange(N, device=xyz.device, dtype=torch.int32)
+    buf = torch.zeros((B, M, nsample + 1), dtype=torch.int32,
+                      device=xyz.device)
+    buf.scatter_(2, slot, n_iota.expand(B, M, N).contiguous())
+    idx = buf[..., :nsample]
+    cnt = rank[..., -1].clamp_max(nsample)
+    first = torch.where(cnt > 0, idx[..., 0], 0)
+    col = torch.arange(nsample, device=xyz.device)
+    idx = torch.where(col < cnt.unsqueeze(-1), idx, first.unsqueeze(-1))
+    return idx.to(torch.int32), cnt.to(torch.int32)
+
+
+def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points (B, N, C), idx (B, M, S) -> (B, M, S, C) plain gather."""
+    B, M, S = idx.shape
+    return gather_point(points, idx.reshape(B, M * S)).reshape(
+        B, M, S, points.shape[-1])
+
+
+def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """3 nearest neighbours of each xyz1 point among xyz2.
+
+    xyz1 (B, N, 3), xyz2 (B, M, 3) -> (dist (B, N, 3) squared, ascending,
+    idx (B, N, 3) int32), ties to the lowest index: three masked arg-min
+    sweeps, as in core.py:212-237.
+    """
+    d = pairwise_sqdist(xyz1, xyz2)                           # (B, N, M)
+    M = d.shape[-1]
+    iota = torch.arange(M, device=d.device)
+    dists, idxs = [], []
+    for _ in range(3):
+        v = d.min(dim=-1, keepdim=True).values
+        i = torch.where(d == v, iota, M).min(dim=-1, keepdim=True).values
+        dists.append(v)
+        idxs.append(i)
+        d = torch.where(iota == i, torch.inf, d)
+    return torch.cat(dists, -1), torch.cat(idxs, -1).to(torch.int32)
+
+
+def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """points (B, M, C), idx (B, N, 3), weight (B, N, 3) -> (B, N, C)."""
+    gathered = group_point(points, idx)                       # (B, N, 3, C)
+    return (gathered * weight.unsqueeze(-1).to(points.dtype)).sum(dim=2)
+
+
+def interp_weights(dist: torch.Tensor) -> torch.Tensor:
+    """Normalised inverse squared-distance weights (B, N, 3)."""
+    w = 1.0 / torch.clamp_min(dist, 1e-10)
+    return w / w.sum(dim=-1, keepdim=True)

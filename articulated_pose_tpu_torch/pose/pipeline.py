@@ -1,0 +1,252 @@
+"""Pose fitting from network predictions: counterpart of
+`articulated_pose_tpu/pose/pipeline.py`.
+
+Per frame, batched over frames (B) and parts (K):
+1. argmax segmentation -> valid-first per-part buffers (one sort of a
+   composite key, then gathers by the sort permutation),
+2. per-part RANSAC similarity fits ("baseline"),
+3. per-joint median vote of the predicted joint axis over the points the
+   joint head associates with that joint,
+4. per joint, joint-constrained RANSAC (alternating-Kabsch hypotheses)
+   and a damped Gauss-Newton refit on the best inlier sets
+   ("nonlinear").  Part 0's pose comes from the first joint's solve.
+
+The randomness comes in as `PoseDraws`, so a run is a pure function of
+its inputs, and the parity tests can hand in the JAX package's draws.
+Nothing here branches on tensor values on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from articulated_pose_tpu_torch.pose import umeyama
+from articulated_pose_tpu_torch.pose.lm import (
+    joint_transformation_estimate, joint_transformation_estimate_alt)
+from articulated_pose_tpu_torch.pose.ransac import (gather_points,
+                                                    hypothesis_inlier_counts,
+                                                    masked_sample_indices,
+                                                    ransac_similarity)
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseFitConfig:
+    """Production defaults of the reference (pipeline.py:41-106); the
+    reasons for each value are documented there."""
+
+    n_parts: int = 3
+    niter_part: int = 128
+    niter_joint: int = 64
+    inlier_th: float = 0.1
+    lm_iters_refit: int = 6
+    part_points: Optional[int] = 1024
+    ransac_score_points: Optional[int] = 1024
+    joint_types: Tuple[str, ...] = ("revolute", "revolute")
+    ransac_chunk: Optional[int] = 512
+    lm_refit_points: Optional[int] = 512
+    # only the production choices are ported; the others raise
+    hypo_estimator: str = "alternating"
+    batch_joints: bool = False
+    buffer_build: str = "sort"
+    axis_agg: str = "median"
+
+    def __post_init__(self):
+        if (self.hypo_estimator, self.batch_joints, self.buffer_build,
+                self.axis_agg) != ("alternating", False, "sort", "median"):
+            raise NotImplementedError(
+                "only hypo_estimator='alternating', batch_joints=False, "
+                "buffer_build='sort' and axis_agg='median' are ported")
+
+
+@dataclasses.dataclass
+class PoseDraws:
+    """Uniforms in [0, 1) that pick the RANSAC minimal samples.
+
+    part (B, K, niter_part, 3): part j's hypotheses; joint
+    (B, K - 1, 2, niter_joint, 3): joint j's base-part and moving-part
+    hypotheses.
+    """
+
+    part: torch.Tensor
+    joint: torch.Tensor
+
+    @classmethod
+    def sample(cls, batch: int, cfg: PoseFitConfig,
+               generator: Optional[torch.Generator] = None,
+               device=None) -> "PoseDraws":
+        K = cfg.n_parts
+        return cls(
+            part=torch.rand((batch, K, cfg.niter_part, 3),
+                            generator=generator, device=device),
+            joint=torch.rand((batch, max(K - 1, 0), 2, cfg.niter_joint, 3),
+                             generator=generator, device=device))
+
+
+def build_part_buffers_sorted(nocs: torch.Tensor, P: torch.Tensor,
+                              cls: torch.Tensor, n_parts: int, cap: int):
+    """Valid-first part buffers (pipeline.py:160-205).
+
+    nocs (B, N, 3K), P (B, N, 3), cls (B, N) -> (src (B, K, cap, 3),
+    tgt (B, K, cap, 3), mask (B, K, cap), cnts (B, K) int32).  The
+    composite key (cls << ceil_log2(N)) | index is sorted once; its low
+    bits are the permutation that puts every part's points in index
+    order, and part j's buffer starts at the exclusive count prefix.
+    """
+    B, N = cls.shape
+    K = n_parts
+    cls = cls.clamp(0, K - 1).to(torch.int32)
+    shift = max(1, (N - 1).bit_length())
+    if (K << shift) >= 2**31:
+        raise ValueError(f"composite key overflows i32 (n_parts={K}, N={N})")
+    iota = torch.arange(N, dtype=torch.int32, device=cls.device)
+    skey = torch.sort((cls << shift) | iota, dim=-1).values
+    perm = (skey & ((1 << shift) - 1)).long()                      # (B, N)
+    payload = torch.cat([P, nocs], dim=-1).gather(
+        1, perm.unsqueeze(-1).expand(B, N, 3 + 3 * K))
+    payload = torch.cat([payload, payload.new_zeros(B, cap, 3 + 3 * K)], 1)
+    part_ids = torch.arange(K, dtype=torch.int32, device=cls.device)
+    cnts = (cls.unsqueeze(1) == part_ids[:, None]).sum(-1, dtype=torch.int32)
+    starts = torch.cumsum(cnts, dim=-1) - cnts                     # (B, K)
+    rows = starts.unsqueeze(-1).long() + torch.arange(cap, device=cls.device)
+    bufs = payload.gather(1, rows.reshape(B, K * cap, 1).expand(
+        B, K * cap, 3 + 3 * K)).reshape(B, K, cap, 3 + 3 * K)
+    mask = (torch.arange(cap, device=cls.device) < cnts.unsqueeze(-1)
+            ).to(P.dtype)
+    tgt = bufs[..., :3]
+    src = torch.stack([bufs[:, j, :, 3 + 3 * j:6 + 3 * j] for j in range(K)],
+                      dim=1)
+    m = mask.unsqueeze(-1)
+    return src * m, tgt * m, mask, cnts
+
+
+def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-column median over masked rows. x (..., N, C), mask (..., N)
+    -> (..., C); no masked row gives inf."""
+    big = torch.where(mask.unsqueeze(-2) > 0, x.transpose(-1, -2), torch.inf)
+    v = torch.sort(big, dim=-1).values                             # (..., C, N)
+    cnt = torch.clamp_min((mask > 0).sum(-1), 1)
+    lo = ((cnt - 1) // 2)[..., None, None].expand(*v.shape[:-1], 1)
+    hi = (cnt // 2)[..., None, None].expand(*v.shape[:-1], 1)
+    return ((v.gather(-1, lo) + v.gather(-1, hi)) / 2.0).squeeze(-1)
+
+
+def vote_joint_axes(axis_pp: torch.Tensor, assocs: torch.Tensor) -> torch.Tensor:
+    """Median joint-axis vote. axis_pp (B, N, 3), assocs (B, J, N) {0, 1}
+    -> (B, J, 3); a joint with no associated point falls back to +z."""
+    axes = masked_median(axis_pp.unsqueeze(1), assocs)
+    # +z built on the device: a host-made constant would be a copy that
+    # waits for the stream
+    z = (torch.arange(3, device=axes.device) == 2).to(axes.dtype)
+    return torch.where(torch.isfinite(axes), axes, z)
+
+
+def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x (B, H, *rest), i (B,) -> (B, *rest)."""
+    idx = i.reshape((-1, 1) + (1,) * (x.dim() - 2)).expand(
+        (x.shape[0], 1) + tuple(x.shape[2:]))
+    return x.gather(1, idx).squeeze(1)
+
+
+def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
+                  cfg: PoseFitConfig, prismatic: bool):
+    """Joint-constrained RANSAC for one (base, moving-part) pair, batched
+    over frames (pipeline.py:256-320): alternating-Kabsch hypotheses,
+    the full joint LM on the best one's inliers.  u0/u1 (B, H, 3)
+    uniforms; buffers (B, P, 3), masks (B, P), jt_axis (B, 3)."""
+    B, H = u0.shape[:2]
+    i0 = masked_sample_indices(u0, m0)
+    i1 = masked_sample_indices(u1, m1)
+    ones3 = torch.ones((B, H, 3), dtype=src0.dtype, device=src0.device)
+    fits = joint_transformation_estimate_alt(
+        gather_points(src0, i0), gather_points(tgt0, i0), ones3,
+        gather_points(src1, i1), gather_points(tgt1, i1), ones3,
+        jt_axis.unsqueeze(1).expand(B, H, 3), sweeps=3, prismatic=prismatic)
+
+    P = src0.shape[1]
+    sp = cfg.ransac_score_points
+    sp = sp if (sp is not None and sp < P) else P
+    c0 = hypothesis_inlier_counts(fits.R0, fits.s0, fits.t0, src0[:, :sp],
+                                  tgt0[:, :sp], m0[:, :sp] > 0, cfg.inlier_th)
+    c1 = hypothesis_inlier_counts(fits.R1, fits.s1, fits.t1, src1[:, :sp],
+                                  tgt1[:, :sp], m1[:, :sp] > 0, cfg.inlier_th)
+    frac0 = c0 / torch.clamp_min(m0[:, :sp].sum(-1, keepdim=True), 1.0)
+    frac1 = c1 / torch.clamp_min(m1[:, :sp].sum(-1, keepdim=True), 1.0)
+    best = ((frac0 + frac1) / 2.0).argmax(dim=-1)                  # (B,)
+
+    def inliers(R, s, t, src, tgt, m):
+        res = umeyama.similarity_residual(_take(R, best), _take(s, best),
+                                          _take(t, best), src, tgt)
+        bi = (res < cfg.inlier_th) & (m > 0)
+        return torch.where(bi.sum(-1, keepdim=True) >= 3, bi, m > 0
+                           ).to(src.dtype)
+
+    w0 = inliers(fits.R0, fits.s0, fits.t0, src0, tgt0, m0)
+    w1 = inliers(fits.R1, fits.s1, fits.t1, src1, tgt1, m1)
+    cap = cfg.lm_refit_points
+    if cap is not None and cap < P:
+        src0, tgt0, w0 = src0[:, :cap], tgt0[:, :cap], w0[:, :cap]
+        src1, tgt1, w1 = src1[:, :cap], tgt1[:, :cap], w1[:, :cap]
+    return joint_transformation_estimate(
+        src0, tgt0, w0, src1, tgt1, w1, jt_axis,
+        lm_iters=cfg.lm_iters_refit, prismatic=prismatic)
+
+
+def fit_frame(pred: Dict[str, torch.Tensor], P: torch.Tensor,
+              draws: PoseDraws, cfg: PoseFitConfig) -> Dict[str, torch.Tensor]:
+    """One frame: pred values (N, ...), P (N, 3), draws without the batch
+    axis -> fit_frame_batch's outputs without the batch axis."""
+    out = fit_frame_batch({k: v[None] for k, v in pred.items()}, P[None],
+                          PoseDraws(draws.part[None], draws.joint[None]), cfg)
+    return {k: v[0] for k, v in out.items()}
+
+
+def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
+                    draws: PoseDraws, cfg: PoseFitConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """Fit every part pose of a batch of frames.
+
+    pred: W (B, N, K), nocs_per_point (B, N, 3K), and for the joint
+    stage joint_axis_per_point (B, N, 3) and index_per_point (B, N, K);
+    P (B, N, 3) input clouds.  Returns baseline_{R,s,t} (B, K, 3, 3) /
+    (B, K) / (B, K, 3), nonlinear_{R,s,t} when the joint heads are
+    present, and part_counts (B, K).
+    """
+    K = cfg.n_parts
+    N = P.shape[1]
+    cls = pred["W"].argmax(dim=-1)
+    cap = N if cfg.part_points is None else min(cfg.part_points, N)
+    src, tgt, mask, cnts = build_part_buffers_sorted(
+        pred["nocs_per_point"], P, cls, K, cap)
+
+    fits = ransac_similarity(draws.part, src, tgt, mask,
+                             inlier_th=cfg.inlier_th, chunk=cfg.ransac_chunk,
+                             score_points=cfg.ransac_score_points)
+    out = {"baseline_R": fits.R, "baseline_s": fits.s, "baseline_t": fits.t}
+
+    if "joint_axis_per_point" in pred:
+        assoc_cls = pred["index_per_point"].argmax(dim=-1)         # (B, N)
+        joint_ids = torch.arange(1, K, device=P.device)
+        assocs = (assoc_cls.unsqueeze(1) == joint_ids[:, None]).to(P.dtype)
+        axes = vote_joint_axes(pred["joint_axis_per_point"], assocs)
+
+        # a single-part object has no joint: its baseline pose stands
+        nl_R, nl_s, nl_t = ([fits.R[:, 0]] + [None] * (K - 1),
+                            [fits.s[:, 0]] + [None] * (K - 1),
+                            [fits.t[:, 0]] + [None] * (K - 1))
+        for j in range(1, K):
+            fit = _joint_ransac(
+                draws.joint[:, j - 1, 0], draws.joint[:, j - 1, 1],
+                src[:, 0], tgt[:, 0], mask[:, 0], src[:, j], tgt[:, j],
+                mask[:, j], axes[:, j - 1], cfg,
+                cfg.joint_types[j - 1] == "prismatic")
+            if j == 1:  # part 0 from the first joint's solve
+                nl_R[0], nl_s[0], nl_t[0] = fit.R0, fit.s0, fit.t0
+            nl_R[j], nl_s[j], nl_t[j] = fit.R1, fit.s1, fit.t1
+        out.update({"nonlinear_R": torch.stack(nl_R, 1),
+                    "nonlinear_s": torch.stack(nl_s, 1),
+                    "nonlinear_t": torch.stack(nl_t, 1)})
+    out["part_counts"] = cnts
+    return out

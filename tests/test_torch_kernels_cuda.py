@@ -1,0 +1,97 @@
+"""CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc (the kernels are built at
+first use) and skips without one.  Run them on a GPU host with
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+(`--noconftest` because tests/conftest.py imports jax, which a GPU host
+need not have.)
+
+The kernels repeat the plain versions' arithmetic operation for
+operation with round-to-nearest intrinsics, so indices and counts must
+be equal, not just close.  Shapes are the serving path's at B=16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from articulated_pose_tpu_torch.ops.kernels import (KERNELS, ball_query, fps,
+                                                    three_nn)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _cloud(seed, B, N, dev):
+    return torch.from_numpy(
+        np.random.RandomState(seed).rand(B, N, 3).astype(np.float32)).to(dev)
+
+
+def test_fps2_matches_plain(dev):
+    xyz = _cloud(0, 16, 2048, dev)
+    before = KERNELS["fps2"].launches
+    got = fps.fps2(xyz, 512, 128)
+    torch.cuda.synchronize()
+    assert KERNELS["fps2"].launches == before + 1
+    want = fps.fps2_plain(xyz, 512, 128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4)])
+@pytest.mark.parametrize("emit_idx", [True, False])
+def test_ball_query_group_matches_plain(dev, N, M, r, emit_idx):
+    xyz = _cloud(1, 16, N, dev)
+    q = xyz[:, :M].contiguous()
+    g, cnt, idx = ball_query.ball_query_group(r, 64, xyz, q, emit_idx)
+    torch.cuda.synchronize()
+    gp, cntp, idxp = ball_query.ball_query_group_plain(r, 64, xyz, q)
+    assert torch.equal(cnt, cntp)
+    assert (g - gp).abs().max().item() <= 1e-6
+    if emit_idx:
+        assert torch.equal(idx, idxp)
+    else:
+        assert idx is None
+
+
+def test_ball_query_group_edge_cases(dev):
+    xyz = _cloud(2, 2, 100, dev)                # N not a multiple of 32
+    far = torch.full((2, 3, 3), 10.0, device=dev)
+    g, cnt, idx = ball_query.ball_query_group(0.1, 8, xyz, far)
+    assert (cnt == 0).all() and (idx == 0).all()
+    assert torch.equal(g, xyz[:, :1, None, :].expand(2, 3, 8, 3)
+                       - far[:, :, None, :])
+    centre = torch.full((2, 1, 3), 0.5, device=dev)
+    _, cnt, idx = ball_query.ball_query_group(5.0, 40, xyz, centre)
+    assert (cnt == 40).all()
+    assert torch.equal(idx[0, 0].cpu(), torch.arange(40, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("N,M", [(512, 128), (2048, 512), (700, 1100), (64, 2)])
+def test_three_nn_matches_plain(dev, N, M):
+    xyz1 = _cloud(3, 16, N, dev)
+    xyz2 = _cloud(4, 16, M, dev)
+    xyz2[:, 1] = xyz2[:, 0]                     # an exact tie: lowest index
+    d, i = three_nn.three_nn(xyz1, xyz2)
+    torch.cuda.synchronize()
+    dp, ip = three_nn.three_nn_plain(xyz1, xyz2)
+    assert torch.equal(i, ip)
+    assert torch.equal(d, dp)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    xyz = _cloud(5, 2, 64, dev)
+    with pytest.raises(ValueError, match="float32"):
+        fps.fps2(xyz.double(), 8, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        three_nn.three_nn(xyz[:, ::2], xyz)
+    with pytest.raises(ValueError, match="shared memory"):
+        fps.fps2(_cloud(6, 1, 20000, dev), 512, 128)
