@@ -2,10 +2,11 @@
 
 The JAX package (`articulated_pose_tpu`) is the reference; every module
 here mirrors its counterpart there and is held against it by the
-`tests/test_torch_*.py` parity tests.  The three point-cloud kernels of
-the serving path (two-level FPS, fused ball query + grouping, 3-NN) are
-hand-written CUDA C++ under `csrc/`, built with nvcc at first use and
-bound with ctypes (`ops/kernels/`).  A CPU tensor takes each kernel's
+`tests/test_torch_*.py` parity tests.  The point-cloud kernels of the
+serving and large-cloud paths (two-level FPS; the ball query in its
+exact, packed and index-only tiers; 3-NN) are hand-written CUDA C++
+under `csrc/`, built with nvcc at first use and bound with ctypes
+(`ops/kernels/`).  A CPU tensor takes each kernel's
 plain PyTorch version; a CUDA tensor takes the kernel.
 
 This package imports torch and numpy only: never jax, flax or the JAX

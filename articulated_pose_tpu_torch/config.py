@@ -34,6 +34,12 @@ class NetworkConfig:
     pool_compute_dtype: Optional[str] = None
     act_compute_dtype: Optional[str] = None
     f32_stages: tuple = ()
+    # the JAX package's kernel-tier switches (config.py:66,73): with
+    # use_pallas the ball query takes the "pallas" route, where
+    # ball_query_packed selects the 10-bit-quantised coordinate tier;
+    # without it the "xla" route, exact whatever ball_query_packed says
+    use_pallas: bool = True
+    ball_query_packed: bool = False
     batch_size: int = 16
 
     ransac_niter_part: int = 128

@@ -120,7 +120,9 @@ class ANCSHModel(nn.Module):
 def build_model(config, generator: Optional[torch.Generator] = None,
                 device=None) -> ANCSHModel:
     """The model of a NetworkConfig, in eval mode, with the reference's
-    initialisation drawn from `generator`."""
+    initialisation drawn from `generator`.  The ball-query route follows
+    `use_pallas` and `ball_query_packed` as the JAX package's
+    build_model maps them (ancsh.py:162-177)."""
     widths = TINY_WIDTHS if config.backbone_preset == "tiny" else {}
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
@@ -129,7 +131,10 @@ def build_model(config, generator: Optional[torch.Generator] = None,
         mixed=config.is_mixed,
         pred_joint=config.pred_joint,
         early_split_nocs=config.early_split_nocs,
-        backbone_spec=BackboneSpec(dropout_rate=config.dropout_rate, **widths),
+        backbone_spec=BackboneSpec(
+            dropout_rate=config.dropout_rate,
+            ball_query_impl="pallas" if config.use_pallas else "xla",
+            ball_query_packed=config.ball_query_packed, **widths),
         dtype=DTYPES[config.compute_dtype],
     )
     init_weights(model, generator)

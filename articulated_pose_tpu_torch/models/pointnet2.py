@@ -2,8 +2,23 @@
 
 The grouping ops are the kernel wrappers of `ops/kernels/`, which choose
 by device: the plain PyTorch version for a CPU tensor, the CUDA kernel
-for a CUDA tensor.  The reference's per-stage `*_impl` strings and the
-packed ball-query tier are TPU choices and are not carried over.
+for a CUDA tensor.  Of the reference's per-stage `*_impl` strings the
+ball query's is carried over, because its tiers compute different
+functions (pointnet2.py:72-113):
+
+- "xla" and "pallas" are the exact first-S-in-radius ball query; both
+  run `ball_query_group` (K2), since they compute the same function;
+- "pallas" with `ball_query_packed` takes the packed tier,
+  `ball_query_group_packed`: the same hits, coordinates quantised to 10
+  bits per component over the cloud's bounding box.  As in JAX, the
+  "xla" route ignores `ball_query_packed`;
+- "stream", the large-cloud tier, returns indices only
+  (`ball_query_idx`), and the centred coordinates are gathered after;
+- "bucket" and "bucket_xla" (B8, a bucket-sampled ball query) are not
+  ported yet and raise.
+
+FPS and 3-NN have one function whatever the reference's `fps_impl` or
+`three_nn_impl` says, so those strings are not carried over.
 """
 
 from __future__ import annotations
@@ -15,10 +30,14 @@ import torch
 from torch import nn
 
 from articulated_pose_tpu_torch.ops import core
-from articulated_pose_tpu_torch.ops.kernels.ball_query import ball_query_group
+from articulated_pose_tpu_torch.ops.kernels.ball_query import (
+    ball_query_group, ball_query_group_packed, ball_query_idx)
 from articulated_pose_tpu_torch.ops.kernels.fps import fps2
 from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
 from articulated_pose_tpu_torch.models.layers import PointConv, SharedMLP
+
+
+BALL_QUERY_IMPLS = ("xla", "pallas", "stream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +53,9 @@ class BackboneSpec:
                                             (128, 128, 128))
     head_width: int = 128
     dropout_rate: float = 0.5
+    ball_query_impl: str = "xla"  # 'xla' | 'pallas' | 'stream'
+    # with ball_query_impl="pallas": the 10-bit-quantised coordinate tier
+    ball_query_packed: bool = False
 
     def __post_init__(self):
         if len(self.sa_npoints) != 2 or len(self.fp_mlps) != 3:
@@ -42,6 +64,13 @@ class BackboneSpec:
             raise NotImplementedError(
                 "the port supports the two-level SA pyramid (two SA stages, "
                 "three FP stages) only")
+        if self.ball_query_impl in ("bucket", "bucket_xla"):
+            raise NotImplementedError(
+                f"ball_query_impl={self.ball_query_impl!r}: the bucket "
+                "ball query (B8, ball_query_bucket.py) is not ported yet")
+        if self.ball_query_impl not in BALL_QUERY_IMPLS:
+            raise ValueError(f"unknown ball_query_impl "
+                             f"{self.ball_query_impl!r}")
 
 
 # trimmed widths, same topology: CLI smokes and CPU tests (ancsh.py:164-168)
@@ -116,6 +145,23 @@ class PointNet2Backbone(nn.Module):
             width = fp.out_features
         self.fc1 = PointConv(width, s.head_width, dtype=dtype)
 
+    def group(self, radius: float, nsample: int, xyz: torch.Tensor,
+              new_xyz: torch.Tensor, emit_idx: bool):
+        """Centred neighbourhood coordinates (B, M, S, 3) and, when
+        emit_idx, their indices (B, M, S), by the spec's ball-query tier
+        (sample_and_group, pointnet2.py:72-113)."""
+        s = self.spec
+        if s.ball_query_impl == "stream":
+            idx, _ = ball_query_idx(radius, nsample, xyz, new_xyz)
+            return core.group_point(xyz, idx) - new_xyz[:, :, None], idx
+        if s.ball_query_impl == "pallas" and s.ball_query_packed:
+            grouped, _, idx = ball_query_group_packed(
+                radius, nsample, xyz, new_xyz, emit_idx=emit_idx)
+        else:
+            grouped, _, idx = ball_query_group(radius, nsample, xyz, new_xyz,
+                                               emit_idx=emit_idx)
+        return grouped, idx
+
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         s = self.spec
         if X.shape[-1] != 3:
@@ -126,13 +172,13 @@ class PointNet2Backbone(nn.Module):
 
         # SA1: neighbourhoods of the np1 picks; the centred coordinates
         # are the whole input, so no index plane is needed
-        g1, _, _ = ball_query_group(s.sa_radii[0], s.sa_nsamples[0], xyz0,
-                                    xyz1, emit_idx=False)
+        g1, _ = self.group(s.sa_radii[0], s.sa_nsamples[0], xyz0, xyz1,
+                           emit_idx=False)
         pts1 = self.sa1(g1)                                   # (B, np1, C1)
 
         # SA2: [centred xyz, grouped SA1 features] (pointnet2.py:116)
-        g2, _, idx = ball_query_group(s.sa_radii[1], s.sa_nsamples[1], xyz1,
-                                      xyz2, emit_idx=True)
+        g2, idx = self.group(s.sa_radii[1], s.sa_nsamples[1], xyz1, xyz2,
+                             emit_idx=True)
         grouped_pts = core.group_point(pts1, idx)
         pts2 = self.sa2(torch.cat([g2.to(pts1.dtype), grouped_pts], dim=-1))
 

@@ -91,6 +91,46 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     return idx.to(torch.int32), cnt.to(torch.int32)
 
 
+# the packed tier's grid: 10 bits per component (ball_query_butterfly.py:197)
+QUANT_LEVELS = 1023
+# f32(1/1023), as the reference rounds its `ext * (1.0 / 1023.0)` scalar
+INV_LEVELS = float(np.float32(1.0) / np.float32(QUANT_LEVELS))
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: float | torch.Tensor):
+    """a·b + c rounded once to f32, as a fused multiply-add does.
+
+    float64 holds the product of two f32 values exactly; at the packed
+    tier's magnitudes it holds the sum exactly too (for the quantiser
+    wherever the floor that follows could change; for the dequantiser
+    unless a cloud's offset is 2^18 times its extent), so the one
+    rounding to f32 is the fused operation's.
+    """
+    return (a.double() * b.double() + c).float()
+
+
+def quantize_coords(xyz: torch.Tensor) -> torch.Tensor:
+    """The packed ball-query tier's coordinates (ball_query_butterfly.py:
+    197-227, 297-305): each component rounded to a 10-bit grid over the
+    cloud's bounding box, then dequantised.
+
+    xyz (B, N, 3) -> (B, N, 3) f32: fma(q, ext·f32(1/1023), mn) with
+    ext = max(mx − mn, 1e-6) and q = clip(floor(fma(p − mn, 1023/ext,
+    0.5)), 0, 1023).  The multiply-adds are fused because XLA fuses the
+    reference's `x * s + c` on the CPU, where the tests hold the two
+    packages to equal coordinates; the kernel uses `__fmaf_rn`.
+    1023/ext is a tensor division: `scalar / tensor` takes the
+    reciprocal first and rounds twice.
+    """
+    x = xyz.float()
+    mn = x.amin(dim=1, keepdim=True)                          # (B, 1, 3)
+    ext = torch.clamp_min(x.amax(dim=1, keepdim=True) - mn, 1e-6)
+    scl = torch.full_like(ext, float(QUANT_LEVELS)) / ext
+    q = torch.clamp(torch.floor(_fma(x - mn, scl, 0.5)), 0.0,
+                    float(QUANT_LEVELS))
+    return _fma(q, ext * INV_LEVELS, mn.double())
+
+
 def group_point(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, M, S) -> (B, M, S, C) plain gather."""
     B, M, S = idx.shape

@@ -1,14 +1,18 @@
-"""Hand-written CUDA kernels of the serving path, with their plain versions.
+"""Hand-written CUDA kernels of the port's paths, with their plain versions.
 
 Importing this package builds nothing: a kernel is compiled (nvcc) and
 loaded the first time a CUDA tensor reaches its wrapper
-(`fps.fps2`, `ball_query.ball_query_group`, `three_nn.three_nn`).
+(`fps.fps2`, `ball_query.ball_query_group`,
+`ball_query.ball_query_group_packed`, `ball_query.ball_query_idx`,
+`three_nn.three_nn`).
 """
 
 from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
 
-# every kernel of the serving path, by name
-KERNELS = {m.KERNEL.name: m.KERNEL for m in (fps, ball_query, three_nn)}
+# every kernel, by name
+KERNELS = {k.name: k for k in (fps.KERNEL, ball_query.KERNEL,
+                                ball_query.PACKED_KERNEL,
+                                ball_query.IDX_KERNEL, three_nn.KERNEL)}
 
 
 def reset_launch_counts() -> None:

@@ -1,11 +1,20 @@
-"""Fused ball query + centred grouping: CUDA kernel K2 and its plain version.
+"""Ball query: three CUDA kernels over one source, with their plain versions.
 
-Replaces `articulated_pose_tpu/ops/pallas/ball_query_butterfly.py::
-query_ball_group_pallas` (exact transposed body `_ballq_butterfly_kernel_t`,
-the one the backbone runs).  The kernel (`csrc/ball_query.cu`) gives each
-query one warp that scans the cloud in index order with ballot/popc slot
-ranks and stops at nsample hits; its source says what bounds it.  A CPU
-tensor takes `ball_query_group_plain`; a CUDA tensor takes the kernel.
+- `ball_query_group` (K2) replaces `articulated_pose_tpu/ops/pallas/
+  ball_query_butterfly.py::query_ball_group_pallas` (exact transposed body
+  `_ballq_butterfly_kernel_t`): first-S-in-radius hits, centred grouped
+  coordinates, cnt, optional idx.
+- `ball_query_group_packed` replaces the same wrapper with `packed=True`
+  (`_ballq_butterfly_packed_kernel_t` and its prologue
+  `_quantize_pack_coords`): the same hits, but the grouped coordinates
+  are the cloud's 10-bit-quantised ones (`core.quantize_coords`).
+- `ball_query_idx` replaces `ball_query_stream.py::query_ball_point_stream`
+  (the large-cloud tier): idx and cnt only; N < 2^24 as there.
+
+All three run `csrc/ball_query.cu`: one warp per query scans the cloud
+in index order with ballot/popc slot ranks and stops at nsample hits;
+its source says what bounds it.  A CPU tensor takes the `*_plain`
+version; a CUDA tensor takes the kernel.
 """
 
 from __future__ import annotations
@@ -20,19 +29,70 @@ from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
                                                           ptr, require_cuda,
                                                           stream_of)
 
+# the streaming tier carries indices as f32 (ball_query_stream.py:156-163)
+STREAM_MAX_POINTS = 1 << 24
 
-def _bind(lib: ctypes.CDLL) -> None:
+
+def _bind_error(lib: ctypes.CDLL) -> None:
+    lib.ball_query_error_string.argtypes = [ctypes.c_int]
+    lib.ball_query_error_string.restype = ctypes.c_char_p
+
+
+def _bind_group(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.ball_query_group_launch.argtypes = [P, P, I, I, I, I, ctypes.c_float,
                                             P, P, P, P]
     lib.ball_query_group_launch.restype = I
-    lib.ball_query_error_string.argtypes = [I]
-    lib.ball_query_error_string.restype = ctypes.c_char_p
+    _bind_error(lib)
+
+
+def _bind_packed(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ball_query_group_packed_launch.argtypes = [
+        P, P, I, I, I, I, ctypes.c_float, P, P, P, P, P]
+    lib.ball_query_group_packed_launch.restype = I
+    _bind_error(lib)
+
+
+def _bind_idx(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ball_query_idx_launch.argtypes = [P, P, I, I, I, I, ctypes.c_float,
+                                          P, P, P]
+    lib.ball_query_idx_launch.restype = I
+    _bind_error(lib)
 
 
 KERNEL = CudaKernel(
     "ball_query_group", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:422", _bind)
+    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:422",
+    _bind_group)
+PACKED_KERNEL = CudaKernel(
+    "ball_query_group_packed", "ball_query.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:269",
+    _bind_packed)
+IDX_KERNEL = CudaKernel(
+    "ball_query_idx", "ball_query.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query_stream.py:142", _bind_idx)
+
+
+def _r2(radius: float) -> float:
+    # r² rounded to f32 once, as the plain versions and the reference do
+    return float(np.float32(radius * radius))
+
+
+def _check(name: str, xyz: torch.Tensor, new_xyz: torch.Tensor,
+           nsample: int):
+    require_cuda(name, xyz)
+    require_cuda(name, new_xyz)
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    if new_xyz.shape[0] != B or new_xyz.device != xyz.device:
+        raise ValueError(f"{name}: xyz and new_xyz must share batch size "
+                         "and device")
+    if B * M == 0 or N == 0 or nsample < 1:
+        raise ValueError(f"{name}: empty problem (B={B}, N={N}, M={M}, "
+                         f"nsample={nsample})")
+    return B, N, M
 
 
 def ball_query_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
@@ -50,28 +110,84 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
     None when not emit_idx)."""
     if xyz.device.type == "cpu":
         return ball_query_group_plain(radius, nsample, xyz, new_xyz, emit_idx)
-    require_cuda("ball_query_group", xyz)
-    require_cuda("ball_query_group", new_xyz)
-    B, N, _ = xyz.shape
-    M = new_xyz.shape[1]
-    if new_xyz.shape[0] != B or new_xyz.device != xyz.device:
-        raise ValueError("ball_query_group: xyz and new_xyz must share batch "
-                         "size and device")
-    if B * M == 0 or N == 0 or nsample < 1:
-        raise ValueError(f"ball_query_group: empty problem (B={B}, N={N}, "
-                         f"M={M}, nsample={nsample})")
+    B, N, M = _check("ball_query_group", xyz, new_xyz, nsample)
     lib = KERNEL.lib()
     dev = xyz.device
     grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
     cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
     idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
            if emit_idx else None)
-    # r² rounded to f32 once, as the plain version and the reference do
-    r2 = ctypes.c_float(float(np.float32(radius * radius)))
     with torch.cuda.device(dev):
         rc = lib.ball_query_group_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, r2, ptr(grouped),
-            ptr(cnt), ptr(idx) if emit_idx else None, stream_of(xyz))
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius),
+            ptr(grouped), ptr(cnt), ptr(idx) if emit_idx else None,
+            stream_of(xyz))
     check_rc(KERNEL, rc, lib.ball_query_error_string)
     KERNEL.launches += 1
     return grouped, cnt, idx
+
+
+def ball_query_group_packed_plain(radius: float, nsample: int,
+                                  xyz: torch.Tensor, new_xyz: torch.Tensor,
+                                  emit_idx: bool = True):
+    """Exact hits, quantised coordinates: the packed kernel's semantics."""
+    idx, cnt = core.query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped = (core.group_point(core.quantize_coords(xyz), idx)
+               - new_xyz.float()[:, :, None])
+    return grouped, cnt, (idx if emit_idx else None)
+
+
+def ball_query_group_packed(radius: float, nsample: int, xyz: torch.Tensor,
+                            new_xyz: torch.Tensor, emit_idx: bool = True):
+    """As `ball_query_group`, with each grouped point taken from the
+    cloud quantised to 10 bits per component over its bounding box:
+    idx and cnt exact, coordinates within ext/2046 of exact."""
+    if xyz.device.type == "cpu":
+        return ball_query_group_packed_plain(radius, nsample, xyz, new_xyz,
+                                             emit_idx)
+    B, N, M = _check("ball_query_group_packed", xyz, new_xyz, nsample)
+    lib = PACKED_KERNEL.lib()
+    dev = xyz.device
+    deq = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+           if emit_idx else None)
+    with torch.cuda.device(dev):
+        rc = lib.ball_query_group_packed_launch(
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(deq),
+            ptr(grouped), ptr(cnt), ptr(idx) if emit_idx else None,
+            stream_of(xyz))
+    check_rc(PACKED_KERNEL, rc, lib.ball_query_error_string)
+    PACKED_KERNEL.launches += 1
+    return grouped, cnt, idx
+
+
+# q² + p² − 2·inner, as the streaming kernel sums it
+# (ball_query_stream.py:63-65): the expansion form of core.pairwise_sqdist
+ball_query_idx_plain = core.query_ball_point
+
+
+def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
+                   new_xyz: torch.Tensor):
+    """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
+    cnt (B, M) i32 capped at S), for clouds of any size below 2^24."""
+    N = xyz.shape[1]
+    if N >= STREAM_MAX_POINTS:
+        raise ValueError(
+            f"ball_query_idx: N={N} exceeds the streaming tier's index "
+            f"range (2^24), as query_ball_point_stream does")
+    if xyz.device.type == "cpu":
+        return ball_query_idx_plain(radius, nsample, xyz, new_xyz)
+    B, N, M = _check("ball_query_idx", xyz, new_xyz, nsample)
+    lib = IDX_KERNEL.lib()
+    dev = xyz.device
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ball_query_idx_launch(
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(cnt),
+            ptr(idx), stream_of(xyz))
+    check_rc(IDX_KERNEL, rc, lib.ball_query_error_string)
+    IDX_KERNEL.launches += 1
+    return idx, cnt

@@ -9,7 +9,9 @@ No PyTorch header is compiled, so a build takes seconds.
 
 `CudaKernel` also carries the launch counter that the wrappers bump each
 time they launch the kernel: a run can show that its path went through
-the kernel and not through the plain version.
+the kernel and not through the plain version.  Several kernels may share
+one source (the three ball-query tiers share `ball_query.cu`): its
+library is built once, and the loader maps it once for all of them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Callable, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -74,10 +77,28 @@ def build_library(source: str) -> pathlib.Path:
     return out
 
 
+def build_all(kernels: Iterable["CudaKernel"]) -> Dict[str, float]:
+    """Build every kernel's source at once, one nvcc per source, then
+    load and bind them all.  Returns each source's build seconds."""
+    kernels = list(kernels)
+    sources = sorted({k.source for k in kernels})
+
+    def timed_build(source: str) -> float:
+        t0 = time.perf_counter()
+        build_library(source)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        seconds = dict(zip(sources, pool.map(timed_build, sources)))
+    for k in kernels:
+        k.lib()
+    return seconds
+
+
 class CudaKernel:
     """One hand-written kernel: its source, its library and its count.
 
-    `bind(lib)` sets the ctypes signatures of the library's exports; it
+    `bind(lib)` sets the ctypes signatures of the kernel's exports; it
     runs once, right after the library is first loaded.
     """
 
@@ -87,7 +108,6 @@ class CudaKernel:
         self.source = source            # file under csrc/
         self.replaces = replaces        # file:line of the TPU kernel
         self.launches = 0
-        self.build_seconds: Optional[float] = None
         self._bind = bind
         self._lib: Optional[ctypes.CDLL] = None
         self._path: Optional[pathlib.Path] = None
@@ -98,11 +118,9 @@ class CudaKernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            t0 = time.perf_counter()
             self._path = build_library(self.source)
             lib = ctypes.CDLL(str(self._path))
             self._bind(lib)
-            self.build_seconds = time.perf_counter() - t0
             self._lib = lib
         return self._lib
 

@@ -2,9 +2,12 @@
 
 Replaces `articulated_pose_tpu/ops/pallas/fps.py::farthest_point_sample2_pallas`
 (body `_fps2_kernel`).  The kernel (`csrc/fps.cu`) runs one block per
-cloud with the coordinates and the min-distance state in shared memory;
-its source says what bounds it and how the design answers.  A CPU tensor
-takes `fps2_plain`; a CUDA tensor takes the kernel.
+cloud in one of three variants, picked here by N: the cloud and the
+min-distance state in shared memory ("smem", up to ~14k points), the
+state alone there with the coordinates read from L2 ("smem_state", up
+to ~57k), or both in device memory ("global", any N).  Its source says
+what bounds it and how the design answers.  A CPU tensor takes
+`fps2_plain`; a CUDA tensor takes the kernel.
 """
 
 from __future__ import annotations
@@ -20,13 +23,15 @@ from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
 
 # Hopper's opt-in shared memory per block (232,448 bytes)
 MAX_SMEM = 232448
+# csrc/fps.cu's variants, fastest first
+VARIANTS = ("smem", "smem_state", "global")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fps2_launch.argtypes = [P, I, I, I, I, P, P, P, P, P]
+    lib.fps2_launch.argtypes = [I, P, I, I, I, I, P, P, P, P, P, P]
     lib.fps2_launch.restype = I
-    lib.fps2_smem_bytes.argtypes = [I, I]
+    lib.fps2_smem_bytes.argtypes = [I, I, I]
     lib.fps2_smem_bytes.restype = ctypes.c_size_t
     lib.fps2_error_string.argtypes = [I]
     lib.fps2_error_string.restype = ctypes.c_char_p
@@ -45,6 +50,17 @@ def fps2_plain(xyz: torch.Tensor, np1: int, np2: int):
     return idx1, xyz1, idx2, xyz2
 
 
+def fps2_variant(n: int, np1: int) -> str:
+    """The kernel variant fps2 launches for an N-point cloud: the first
+    of VARIANTS whose shared memory fits a block ("global" needs none
+    per point)."""
+    lib = KERNEL.lib()
+    for v, name in enumerate(VARIANTS[:-1]):
+        if lib.fps2_smem_bytes(v, n, np1) <= MAX_SMEM:
+            return name
+    return VARIANTS[-1]
+
+
 def fps2(xyz: torch.Tensor, np1: int, np2: int):
     """xyz (B, N, 3) f32 -> (idx1 (B, np1) i32, xyz1 (B, np1, 3),
     idx2 (B, np2) i32 LOCAL to the np1 subset, xyz2 (B, np2, 3))."""
@@ -56,19 +72,20 @@ def fps2(xyz: torch.Tensor, np1: int, np2: int):
         raise ValueError(f"fps2: need 1 <= np2 <= np1 <= N and B > 0, got "
                          f"B={B}, N={N}, np1={np1}, np2={np2}")
     lib = KERNEL.lib()
-    smem = lib.fps2_smem_bytes(N, np1)
-    if smem > MAX_SMEM:
-        raise ValueError(
-            f"fps2: N={N} needs {smem} B of shared memory per cloud, more "
-            f"than a block can hold ({MAX_SMEM} B)")
+    variant = fps2_variant(N, np1)
     dev = xyz.device
     idx1 = torch.empty((B, np1), dtype=torch.int32, device=dev)
     xyz1 = torch.empty((B, np1, 3), dtype=torch.float32, device=dev)
     idx2 = torch.empty((B, np2), dtype=torch.int32, device=dev)
     xyz2 = torch.empty((B, np2, 3), dtype=torch.float32, device=dev)
+    # the global variant's min-distance state: one row per cloud
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=dev)
+               if variant == "global" else None)
     with torch.cuda.device(dev):
-        rc = lib.fps2_launch(ptr(xyz), B, N, np1, np2, ptr(idx1), ptr(xyz1),
-                             ptr(idx2), ptr(xyz2), stream_of(xyz))
+        rc = lib.fps2_launch(VARIANTS.index(variant), ptr(xyz), B, N, np1,
+                             np2, ptr(idx1), ptr(xyz1), ptr(idx2), ptr(xyz2),
+                             None if scratch is None else ptr(scratch),
+                             stream_of(xyz))
     check_rc(KERNEL, rc, lib.fps2_error_string)
     KERNEL.launches += 1
     return idx1, xyz1, idx2, xyz2

@@ -8,23 +8,33 @@ is non-zero):
 
 0. Require a CUDA device; print the card (nvidia-smi name and power
    limit) and the torch / CUDA / nvcc versions.
-1. Build the three CUDA kernels from csrc/ with nvcc.
-2. Hold each kernel against its plain PyTorch version at the serving
-   path's shapes (B=16): exact indices and counts; coordinates within
-   1e-6 absolute; 3-NN distances within 1e-6 relative.  Device time of
-   each, median of 20 CUDA-event-timed calls (`cuda_time_ms`).
+1. Build the CUDA sources from csrc/, one nvcc each, all at once.
+2. Hold each of the five kernels against its plain PyTorch version at
+   the shapes its paths give it: the serving path's (B=16, N=2048) and
+   the large-cloud path's (B=4, N=32768): exact indices and counts;
+   coordinates within 1e-6 absolute (equal for the packed tier); 3-NN
+   distances within 1e-6 relative.  Device time of each, median of 20
+   CUDA-event-timed calls (`cuda_time_ms`).
 3. Pose oracle: 8 frames of a 3-part object with two revolute joints and
    perfect predictions; the pose fit on the card must recover every
    part's similarity (rotation < 3 deg, scale within 5 %, translation
    within 0.05).
 4. Serve: PosePredictor at the reference width for eyeglasses (K=3),
-   N=2048, batch 16, f32, seeded random weights; three requests of 16
-   clouds through serve_clouds, with every kernel launched by the path
-   (1 FPS, 2 ball query, 2 3-NN per batch); the forward on the card
-   against the same model on the CPU; one forward with the bf16 trunk.
+   N=2048, seeded random weights, niter 128/64, through serve_clouds:
+   (a) f32, three requests of 16 clouds (1 FPS, 2 exact ball query,
+   2 3-NN launches per batch), the forward on the card against the same
+   model on the CPU, and one forward with the bf16 trunk; (b) the
+   packed bf16 configuration that bench.py times (ball_query_packed),
+   three requests of 64 clouds (1 FPS, 2 packed ball query, 2 3-NN).
+5. Large-cloud forward (scripts/run_large_cloud.py's tier): ANCSHModel
+   with the bf16 trunk and ball_query_impl="stream", B=4, N=32768
+   (1 FPS in its large-cloud variant, 2 index-only ball query, 2 3-NN
+   per forward); the f32 forward on the card against the CPU at B=1.
 
-The last lines are the card's name and power limit as nvidia-smi prints
-them, a JSON object describing each kernel, then
+Each path of phases 4-5 runs with the launch counts set to 0 just
+before it and read just after, and fails unless each of its kernels
+launched.  The last lines are the card's name and power limit as
+nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -46,7 +56,11 @@ MAX_SPIN_CYCLES = 1 << 28           # ~0.15-0.25 s of spin at H100 clocks
 N_POINTS = 2048
 SERVE_BATCH = 16
 SERVE_REQUESTS = 3
+PACKED_BATCH = 64                   # bench.py's serving batch
 ORACLE_FRAMES = 8
+LARGE_B = 4                         # scripts/run_large_cloud.py's shape
+LARGE_N = 32768
+LARGE_FORWARDS = 3
 
 
 def log(msg: str) -> None:
@@ -126,76 +140,127 @@ def kernel_result(err, times, shapes):
                 plain_ms_device_only=all(t[3] for t in times), shapes=shapes)
 
 
+def check_equal(name: str, got, want) -> float:
+    """Raise unless every tensor of got equals want's; max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: output {i} differs from the plain "
+                                 "version")
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def compare_fps(clouds):
+    """K1 at each (label, cloud): N -> 512 -> 128, as PointNet2Backbone
+    calls it.  Returns the JSON entry and each cloud's (xyz1, xyz2)."""
+    from articulated_pose_tpu_torch.ops.kernels import fps
+
+    err, times, shapes, picks = 0.0, [], [], {}
+    for label, cloud in clouds:
+        B, N, _ = cloud.shape
+        got = fps.fps2(cloud, 512, 128)
+        err = max(err, check_equal("fps2", got,
+                                   fps.fps2_plain(cloud, 512, 128)))
+        t = time_both(lambda: fps.fps2(cloud, 512, 128),
+                      lambda: fps.fps2_plain(cloud, 512, 128))
+        shape = f"B{B} N{N}->512->128 ({fps.fps2_variant(N, 512)})"
+        log(f"[kernels] fps2 {shape}: indices and coordinates equal; {t[4]}")
+        times.append(t)
+        shapes.append(shape)
+        picks[label] = (got[1], got[3])
+    return kernel_result(err, times, shapes), picks
+
+
+def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound):
+    """A grouped ball query (exact or packed) at each (points, queries,
+    radius, emit_idx) of its path, S=64: cnt and idx equal, coordinates
+    within coord_bound.  The emit_idx=False launch must give the same
+    coordinates and counts."""
+    import torch
+
+    err, times, shapes = 0.0, [], []
+    for pts, q, r, emit in cases:
+        g, cnt, idx = kernel_fn(r, 64, pts, q, emit_idx=True)
+        gp, cntp, idxp = plain_fn(r, 64, pts, q)
+        g2, cnt2, _ = kernel_fn(r, 64, pts, q, emit_idx=False)
+        check_equal(f"{name} r={r} cnt/idx", (cnt, idx, cnt2),
+                    (cntp, idxp, cntp))
+        e = max((g - gp).abs().max().item(), (g2 - gp).abs().max().item())
+        if e > coord_bound:
+            raise AssertionError(f"{name} r={r}: grouped xyz off by {e}")
+        err = max(err, e)
+        t = time_both(lambda: kernel_fn(r, 64, pts, q, emit_idx=emit),
+                      lambda: plain_fn(r, 64, pts, q, emit_idx=emit))
+        shape = (f"B{pts.shape[0]} N{pts.shape[1]} M{q.shape[1]} S64 r{r} "
+                 f"emit_idx={emit}")
+        log(f"[kernels] {name} {shape}: cnt, idx equal, grouped max abs "
+            f"err {e:.3g}; {t[4]} (mean cnt {cnt.float().mean().item():.2f})")
+        times.append(t)
+        shapes.append(shape)
+    return kernel_result(err, times, shapes)
+
+
 def compare_kernels(dev):
     import torch
 
-    from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
+    from articulated_pose_tpu_torch.ops.kernels import ball_query, three_nn
 
     rng = np.random.RandomState(0)
     cloud = torch.from_numpy(
         rng.rand(B_KERNEL, N_POINTS, 3).astype(np.float32)).to(dev)
+    large = torch.from_numpy(
+        rng.rand(LARGE_B, LARGE_N, 3).astype(np.float32)).to(dev)
     results = {}
 
-    # K1: 2048 -> 512 -> 128, as PointNet2Backbone calls it
-    got = fps.fps2(cloud, 512, 128)
-    want = fps.fps2_plain(cloud, 512, 128)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("idx1", "xyz1", "idx2", "xyz2"), got, want):
-        if not torch.equal(g, w):
-            raise AssertionError(f"fps2 {name} differs from the plain version")
-    err = max((g.float() - w.float()).abs().max().item()
-              for g, w in zip(got, want))
-    t = time_both(lambda: fps.fps2(cloud, 512, 128),
-                  lambda: fps.fps2_plain(cloud, 512, 128))
-    log(f"[kernels] fps2 B=16 N=2048->512->128: indices and coordinates "
-        f"equal (max abs err {err:.3g}); {t[4]}")
-    results["fps2"] = kernel_result(err, [t], ["B16 N2048->512->128"])
-    xyz1, xyz2 = got[1], got[3]
+    # K1: the serving cloud and the large cloud (its large-N variant)
+    results["fps2"], picks = compare_fps((("serve", cloud),
+                                          ("large", large)))
+    xyz1, xyz2 = picks["serve"]
+    lxyz1, lxyz2 = picks["large"]
 
-    # K2: SA1 (idx not emitted on the path) and SA2
-    err, times, shapes = 0.0, [], []
-    for pts, q, r, emit in ((cloud, xyz1, 0.2, False), (xyz1, xyz2, 0.4, True)):
-        g, cnt, idx = ball_query.ball_query_group(r, 64, pts, q, emit_idx=True)
-        gp, cntp, idxp = ball_query.ball_query_group_plain(r, 64, pts, q)
-        g2, cnt2, _ = ball_query.ball_query_group(r, 64, pts, q, emit_idx=False)
-        torch.cuda.synchronize()
-        if not (torch.equal(cnt, cntp) and torch.equal(idx, idxp)
-                and torch.equal(cnt2, cntp)):
-            raise AssertionError(f"ball query r={r}: cnt/idx differ from the "
-                                 "plain version")
-        e = max((g - gp).abs().max().item(), (g2 - gp).abs().max().item())
-        if e > 1e-6:
-            raise AssertionError(f"ball query r={r}: grouped xyz off by {e}")
-        err = max(err, e)
-        t = time_both(
-            lambda: ball_query.ball_query_group(r, 64, pts, q, emit_idx=emit),
-            lambda: ball_query.ball_query_group_plain(r, 64, pts, q,
-                                                      emit_idx=emit))
-        shape = (f"B16 N{pts.shape[1]} M{q.shape[1]} S64 r{r} "
-                 f"emit_idx={emit}")
-        log(f"[kernels] ball_query_group {shape}: cnt, idx equal, grouped "
-            f"max abs err {e:.3g}; {t[4]} (mean cnt "
-            f"{cnt.float().mean().item():.2f})")
+    # K2 and B3p: SA1 (idx not emitted on the path) and SA2
+    serve_cases = ((cloud, xyz1, 0.2, False), (xyz1, xyz2, 0.4, True))
+    # (the exact tier keeps the first slice's 1e-6; the packed tier's
+    # quantiser is written to round as its plain version does: equal)
+    results["ball_query_group"] = compare_grouping(
+        "ball_query_group", ball_query.ball_query_group,
+        ball_query.ball_query_group_plain, serve_cases, 1e-6)
+    results["ball_query_group_packed"] = compare_grouping(
+        "ball_query_group_packed", ball_query.ball_query_group_packed,
+        ball_query.ball_query_group_packed_plain, serve_cases, 0.0)
+
+    # B6: the large-cloud path's SA1 (32768 -> 512) and SA2 (512 -> 128)
+    times, shapes = [], []
+    for pts, q, r in ((large, lxyz1, 0.2), (lxyz1, lxyz2, 0.4)):
+        idx, cnt = ball_query.ball_query_idx(r, 64, pts, q)
+        check_equal(f"ball_query_idx r={r}", (idx, cnt),
+                    ball_query.ball_query_idx_plain(r, 64, pts, q))
+        t = time_both(lambda: ball_query.ball_query_idx(r, 64, pts, q),
+                      lambda: ball_query.ball_query_idx_plain(r, 64, pts, q))
+        shape = f"B{LARGE_B} N{pts.shape[1]} M{q.shape[1]} S64 r{r}"
+        log(f"[kernels] ball_query_idx {shape}: idx, cnt equal; {t[4]} "
+            f"(mean cnt {cnt.float().mean().item():.2f})")
         times.append(t)
         shapes.append(shape)
-    results["ball_query_group"] = kernel_result(err, times, shapes)
+    results["ball_query_idx"] = kernel_result(0.0, times, shapes)
 
-    # K3: FP2 (512 <- 128) and FP3 (2048 <- 512)
+    # K3: FP2 and FP3 of both paths
     err, times, shapes = 0.0, [], []
-    for a, b in ((xyz1, xyz2), (cloud, xyz1)):
+    for a, b in ((xyz1, xyz2), (cloud, xyz1), (lxyz1, lxyz2),
+                 (large, lxyz1)):
         d, i = three_nn.three_nn(a, b)
         dp, ip = three_nn.three_nn_plain(a, b)
-        torch.cuda.synchronize()
-        if not torch.equal(i, ip):
-            raise AssertionError("three_nn indices differ from the plain "
-                                 "version")
+        check_equal("three_nn indices", (i,), (ip,))
         rel = ((d - dp).abs() / dp.abs().clamp_min(1e-30)).max().item()
         if rel > 1e-6:
             raise AssertionError(f"three_nn distances off by {rel} relative")
         err = max(err, (d - dp).abs().max().item())
         t = time_both(lambda: three_nn.three_nn(a, b),
                       lambda: three_nn.three_nn_plain(a, b))
-        shape = f"B16 N{a.shape[1]} M{b.shape[1]}"
+        shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
         log(f"[kernels] three_nn {shape}: idx equal, dist max rel err "
             f"{rel:.3g}; {t[4]}")
         times.append(t)
@@ -291,60 +356,80 @@ def pose_oracle(dev):
 
 
 # ---------------------------------------------------------------- phase 4
-def serve(dev, kernels):
-    import torch
+def expected_launches(**per_call) -> dict:
+    """Every kernel's launches in one call of a path: the named ones,
+    zero for the rest."""
+    from articulated_pose_tpu_torch.ops.kernels import KERNELS
 
-    from articulated_pose_tpu_torch.config import NetworkConfig
-    from articulated_pose_tpu_torch.models.ancsh import build_model
+    return {name: per_call.get(name, 0) for name in KERNELS}
+
+
+def serve_requests(label, predictor, clouds, batch, per_batch):
+    """Serve len(clouds) // batch requests through serve_clouds with the
+    launch counts set to 0 first; check each request's launches, shapes
+    and finiteness.  Returns the path's launch counts."""
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
-    from articulated_pose_tpu_torch.serving import PosePredictor, serve_clouds
+    from articulated_pose_tpu_torch.serving import serve_clouds
 
-    cfg = NetworkConfig(category="eyeglasses", n_max_parts=3,
-                        num_points=N_POINTS, batch_size=SERVE_BATCH)
-    state = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
-    predictor = PosePredictor(cfg, state_dict=state, device=dev)
-    clouds, _, _ = articulated_frames(np.random.RandomState(2),
-                                      SERVE_REQUESTS * SERVE_BATCH, N_POINTS,
-                                      3)
-    K = cfg.n_max_parts
-
+    K = predictor.config.n_max_parts
+    N = clouds.shape[1]
+    requests = len(clouds) // batch
     reset_launch_counts()
-    per_batch = {"fps2": 1, "ball_query_group": 2, "three_nn": 2}
     latencies = []
-    for r in range(SERVE_REQUESTS):
+    for r in range(requests):
         before = launch_counts()
         t0 = time.perf_counter()
-        out = serve_clouds(predictor,
-                           clouds[r * SERVE_BATCH:(r + 1) * SERVE_BATCH],
-                           SERVE_BATCH)
+        out = serve_clouds(predictor, clouds[r * batch:(r + 1) * batch],
+                           batch)
         latencies.append(time.perf_counter() - t0)
         after = launch_counts()
         rise = {k: after[k] - before[k] for k in after}
         if rise != per_batch:
-            raise AssertionError(f"request {r}: kernel launches {rise}, "
-                                 f"expected {per_batch}")
-        shapes = {"R": (SERVE_BATCH, K, 3, 3), "s": (SERVE_BATCH, K),
-                  "t": (SERVE_BATCH, K, 3), "seg": (SERVE_BATCH, N_POINTS),
-                  "part_counts": (SERVE_BATCH, K)}
+            raise AssertionError(f"[{label}] request {r}: kernel launches "
+                                 f"{rise}, expected {per_batch}")
+        shapes = {"R": (batch, K, 3, 3), "s": (batch, K), "t": (batch, K, 3),
+                  "seg": (batch, N), "part_counts": (batch, K)}
         for k, shape in shapes.items():
             if out[k].shape != shape:
                 raise AssertionError(f"{k} has shape {out[k].shape}, "
                                      f"expected {shape}")
         for k in ("R", "s", "t"):
             if not np.isfinite(out[k]).all():
-                raise AssertionError(f"request {r}: non-finite {k}")
-        if (out["part_counts"].sum(-1) != N_POINTS).any():
+                raise AssertionError(f"[{label}] request {r}: non-finite {k}")
+        if (out["part_counts"].sum(-1) != N).any():
             raise AssertionError("part counts do not add up to N")
     counts = launch_counts()
-    for name, k in kernels.items():
-        k["launches"] = counts[name]
     for r, lat in enumerate(latencies):
-        log(f"[serve] request {r}: {SERVE_BATCH} clouds in {lat * 1e3:.1f} ms")
+        log(f"[{label}] request {r}: {batch} clouds in {lat * 1e3:.1f} ms")
     steady = latencies[1:]
-    log(f"[serve] steady {SERVE_BATCH * len(steady) / sum(steady):.1f} "
-        f"clouds/s (requests 1..{SERVE_REQUESTS - 1}, f32, N={N_POINTS}, K=3, "
-        f"niter 128/64); launches {counts}")
+    log(f"[{label}] steady {batch * len(steady) / sum(steady):.1f} clouds/s "
+        f"(requests 1..{requests - 1}, N={N}, K={K}, niter "
+        f"{predictor.pose_cfg.niter_part}/{predictor.pose_cfg.niter_joint});"
+        f" launches {counts}")
+    return counts
+
+
+def serve(dev):
+    """Phase 4: the f32 serve, its forward against the CPU and the bf16
+    trunk; then the packed bf16 serve.  Returns each path's counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor
+
+    cfg = NetworkConfig(category="eyeglasses", n_max_parts=3,
+                        num_points=N_POINTS, batch_size=SERVE_BATCH)
+    state = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    predictor = PosePredictor(cfg, state_dict=state, device=dev)
+    clouds, _, _ = articulated_frames(np.random.RandomState(2),
+                                      SERVE_REQUESTS * PACKED_BATCH, N_POINTS,
+                                      3)
+    paths = {"serve f32": serve_requests(
+        "serve f32", predictor, clouds[:SERVE_REQUESTS * SERVE_BATCH],
+        SERVE_BATCH, expected_launches(fps2=1, ball_query_group=2,
+                                       three_nn=2))}
 
     # forward on the card against the same weights on the CPU, B=2
     x = torch.from_numpy(clouds[:2])
@@ -354,7 +439,7 @@ def serve(dev, kernels):
         cpu.load_state_dict(state)
         ref = cpu(x)
     worst = max((gpu[k].cpu() - ref[k]).abs().max().item() for k in ref)
-    log(f"[serve] forward card vs CPU (plain ops), B=2: max abs diff "
+    log(f"[serve f32] forward card vs CPU (plain ops), B=2: max abs diff "
         f"{worst:.3g} over {len(ref)} outputs")
     if not worst < 1e-3:
         raise AssertionError("forward on the card disagrees with the CPU")
@@ -369,8 +454,91 @@ def serve(dev, kernels):
         if not torch.isfinite(v).all():
             raise AssertionError(f"bf16 forward: non-finite {k}")
     diff = max((out[k] - f32[k]).abs().max().item() for k in out)
-    log(f"[serve] bf16 trunk forward B={SERVE_BATCH}: finite, max abs diff "
-        f"to f32 {diff:.3g}")
+    log(f"[serve f32] bf16 trunk forward B={SERVE_BATCH}: finite, max abs "
+        f"diff to f32 {diff:.3g}")
+
+    # the configuration bench.py times: bf16 trunk, packed ball query
+    packed_cfg = cfg.replace(compute_dtype="bfloat16", ball_query_packed=True,
+                             batch_size=PACKED_BATCH)
+    packed = PosePredictor(packed_cfg, state_dict=state, device=dev)
+    paths["serve packed bf16"] = serve_requests(
+        "serve packed bf16", packed, clouds, PACKED_BATCH,
+        expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2))
+    with torch.no_grad():
+        x = torch.from_numpy(clouds[:SERVE_BATCH]).to(dev)
+        q = packed.model(x)
+        exact = bf16(x)
+    diff = max((q[k] - exact[k]).abs().max().item() for k in q)
+    log(f"[serve packed bf16] forward B={SERVE_BATCH}: max abs diff to the "
+        f"exact bf16 forward {diff:.3g}")
+    return paths
+
+
+# ---------------------------------------------------------------- phase 5
+def large_cloud(dev):
+    """Phase 5: the large-cloud forward; returns the path's counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.models.ancsh import ANCSHModel
+    from articulated_pose_tpu_torch.models.layers import init_weights
+    from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    spec = BackboneSpec(ball_query_impl="stream")
+
+    def model(dtype):
+        m = ANCSHModel(n_max_parts=3, dtype=dtype, backbone_spec=spec)
+        return m.eval()
+
+    state = init_weights(model(torch.float32),
+                         torch.Generator().manual_seed(3)).state_dict()
+    bf16 = model(torch.bfloat16).to(dev)
+    bf16.load_state_dict(state)
+    P = torch.from_numpy(np.random.RandomState(4).rand(
+        LARGE_B, LARGE_N, 3).astype(np.float32)).to(dev)
+    per_forward = expected_launches(fps2=1, ball_query_idx=2, three_nn=2)
+
+    reset_launch_counts()
+    seconds = []
+    for f in range(LARGE_FORWARDS):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = bf16(P)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        after = launch_counts()
+        rise = {k: after[k] - before[k] for k in after}
+        if rise != per_forward:
+            raise AssertionError(f"[large] forward {f}: kernel launches "
+                                 f"{rise}, expected {per_forward}")
+        for k, v in out.items():
+            if v.shape[:2] != (LARGE_B, LARGE_N) or not torch.isfinite(v).all():
+                raise AssertionError(f"[large] forward {f}: {k} has shape "
+                                     f"{tuple(v.shape)} or is not finite")
+    counts = launch_counts()
+    log(f"[large] bf16 forward B={LARGE_B} N={LARGE_N}: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in seconds)
+        + f" ms (host clock, synchronised); launches {counts}")
+
+    # f32 on the card against the CPU, B=1: the same neighbourhoods on
+    # both (the kernels equal their plain versions), so only matmul
+    # summation order differs; 1e-3, the serve phase's bound
+    f32 = model(torch.float32).to(dev)
+    f32.load_state_dict(state)
+    cpu = model(torch.float32)
+    cpu.load_state_dict(state)
+    with torch.no_grad():
+        gpu = f32(P[:1])
+        ref = cpu(P[:1].cpu())
+    worst = max((gpu[k].cpu() - ref[k]).abs().max().item() for k in ref)
+    log(f"[large] f32 forward card vs CPU (plain ops), B=1 N={LARGE_N}: max "
+        f"abs diff {worst:.3g} over {len(ref)} outputs")
+    if not worst < 1e-3:
+        raise AssertionError("large-cloud forward on the card disagrees "
+                             "with the CPU")
+    return counts
 
 
 def main() -> int:
@@ -388,7 +556,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import articulated_pose_tpu_torch  # noqa: F401  (sets TF32 off)
     from articulated_pose_tpu_torch.ops.kernels import KERNELS
-    from articulated_pose_tpu_torch.ops.kernels.build import nvcc_path
+    from articulated_pose_tpu_torch.ops.kernels.build import (build_all,
+                                                              nvcc_path)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -400,16 +569,23 @@ def main() -> int:
         f"nvcc: {nvcc}")
 
     t0 = time.perf_counter()
-    for k in KERNELS.values():
-        k.lib()
-        ptxas = [ln.strip() for ln in k.build_log().splitlines()
+    seconds = build_all(KERNELS.values())
+    logs = {k.source: k.build_log() for k in KERNELS.values()}
+    for source, log_text in sorted(logs.items()):
+        ptxas = [ln.strip() for ln in log_text.splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"[build] {k.source}: {k.build_seconds:.2f} s; " + " | ".join(ptxas))
-    log(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+        log(f"[build] {source}: {seconds[source]:.2f} s; " + " | ".join(ptxas))
+    log(f"[build] all sources in parallel: {time.perf_counter() - t0:.2f} s")
 
     kernels = compare_kernels(dev)
     pose_oracle(dev)
-    serve(dev, kernels)
+    paths = serve(dev)
+    paths["large"] = large_cloud(dev)
+    for name, k in kernels.items():
+        k["launches"] = sum(c[name] for c in paths.values())
+        if k["launches"] == 0:
+            raise AssertionError(f"{name} was never launched by a path")
+    log(f"[paths] launches per path: {json.dumps(paths)}")
 
     log(card)                       # as nvidia-smi prints it
     log(json.dumps({"kernels": [

@@ -10,7 +10,8 @@ need not have.)
 
 The kernels repeat the plain versions' arithmetic operation for
 operation with round-to-nearest intrinsics, so indices and counts must
-be equal, not just close.  Shapes are the serving path's at B=16.
+be equal, not just close.  Shapes are the serving path's at B=16 and
+the large-cloud path's (N=32768) at B=2-4.
 """
 
 import numpy as np
@@ -44,6 +45,61 @@ def test_fps2_matches_plain(dev):
     want = fps.fps2_plain(xyz, 512, 128)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# above ~14k points the cloud leaves shared memory, above ~57k the state
+@pytest.mark.parametrize("N,variant", [(20000, "smem_state"),
+                                       (32768, "smem_state"),
+                                       (100003, "global")])
+def test_fps2_large_clouds_match_plain(dev, N, variant):
+    xyz = _cloud(7, 2, N, dev)
+    assert fps.fps2_variant(N, 512) == variant
+    got = fps.fps2(xyz, 512, 128)
+    torch.cuda.synchronize()
+    want = fps.fps2_plain(xyz, 512, 128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4)])
+@pytest.mark.parametrize("emit_idx", [True, False])
+def test_ball_query_group_packed_matches_plain(dev, N, M, r, emit_idx):
+    xyz = _cloud(8, 16, N, dev)
+    q = xyz[:, :M].contiguous()
+    before = KERNELS["ball_query_group_packed"].launches
+    g, cnt, idx = ball_query.ball_query_group_packed(r, 64, xyz, q, emit_idx)
+    torch.cuda.synchronize()
+    assert KERNELS["ball_query_group_packed"].launches == before + 1
+    gp, cntp, idxp = ball_query.ball_query_group_packed_plain(r, 64, xyz, q)
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(g, gp)
+    if emit_idx:
+        assert torch.equal(idx, idxp)
+    else:
+        assert idx is None
+
+
+def test_ball_query_group_packed_zero_hits(dev):
+    xyz = _cloud(9, 2, 100, dev)
+    far = torch.full((2, 3, 3), 10.0, device=dev)
+    g, cnt, idx = ball_query.ball_query_group_packed(0.1, 8, xyz, far)
+    gp, _, _ = ball_query.ball_query_group_packed_plain(0.1, 8, xyz, far)
+    assert (cnt == 0).all() and (idx == 0).all()
+    assert torch.equal(g, gp)
+
+
+@pytest.mark.parametrize("B,N,M,r", [(4, 32768, 512, 0.2), (4, 512, 128, 0.4),
+                                     (2, 700, 1100, 0.3)])
+def test_ball_query_idx_matches_plain(dev, B, N, M, r):
+    xyz = _cloud(10, B, N, dev)
+    q = _cloud(11, B, M, dev)
+    before = KERNELS["ball_query_idx"].launches
+    idx, cnt = ball_query.ball_query_idx(r, 64, xyz, q)
+    torch.cuda.synchronize()
+    assert KERNELS["ball_query_idx"].launches == before + 1
+    idxp, cntp = ball_query.ball_query_idx_plain(r, 64, xyz, q)
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(idx, idxp)
 
 
 @pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4)])
@@ -93,5 +149,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fps.fps2(xyz.double(), 8, 4)
     with pytest.raises(ValueError, match="contiguous"):
         three_nn.three_nn(xyz[:, ::2], xyz)
-    with pytest.raises(ValueError, match="shared memory"):
-        fps.fps2(_cloud(6, 1, 20000, dev), 512, 128)
+    with pytest.raises(ValueError, match="np1 <= N"):
+        fps.fps2(xyz, 128, 4)
+    with pytest.raises(ValueError, match="empty"):
+        ball_query.ball_query_idx(0.1, 0, xyz, xyz)

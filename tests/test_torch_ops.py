@@ -181,11 +181,18 @@ class TestDispatch:
         g, c, i = ball_query.ball_query_group(0.3, 8, xyz, x1, emit_idx=True)
         gp, cp, ip = ball_query.ball_query_group_plain(0.3, 8, xyz, x1)
         assert torch.equal(g, gp) and torch.equal(c, cp) and torch.equal(i, ip)
+        g, c, i = ball_query.ball_query_group_packed(0.3, 8, xyz, x1)
+        gp, cp, ip = ball_query.ball_query_group_packed_plain(0.3, 8, xyz, x1)
+        assert torch.equal(g, gp) and torch.equal(c, cp) and torch.equal(i, ip)
+        i, c = ball_query.ball_query_idx(0.3, 8, xyz, x1)
+        ip, cp = ball_query.ball_query_idx_plain(0.3, 8, xyz, x1)
+        assert torch.equal(c, cp) and torch.equal(i, ip)
         d, j = three_nn.three_nn(xyz, x1)
         dp, jp = three_nn.three_nn_plain(xyz, x1)
         assert torch.equal(d, dp) and torch.equal(j, jp)
         assert launch_counts() == {"fps2": 0, "ball_query_group": 0,
-                                   "three_nn": 0}
+                                   "ball_query_group_packed": 0,
+                                   "ball_query_idx": 0, "three_nn": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
@@ -193,5 +200,9 @@ class TestDispatch:
             fps.fps2(xyz, 4, 2)
         with pytest.raises(ValueError, match="CUDA"):
             ball_query.ball_query_group(0.1, 4, xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            ball_query.ball_query_group_packed(0.1, 4, xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            ball_query.ball_query_idx(0.1, 4, xyz, xyz)
         with pytest.raises(ValueError, match="CUDA"):
             three_nn.three_nn(xyz, xyz)
