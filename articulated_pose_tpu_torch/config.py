@@ -1,11 +1,9 @@
 """Serving configuration.
 
 Port of the `articulated_pose_tpu.config.NetworkConfig` fields that the
-forward + pose-fit path reads, with the same names and defaults.  The
-mixed-precision policy knobs of the reference (`head_compute_dtype`,
-`pool_compute_dtype`, `act_compute_dtype`, `f32_stages`) exist so that a
-config written for the JAX package is read the same way, but anything
-other than their defaults raises until they are ported.
+forward + pose-fit path reads, with the same names and defaults,
+including the mixed-precision policy knobs (`head_compute_dtype`,
+`pool_compute_dtype`, `act_compute_dtype`, `f32_stages`; docs/dtype_ab.md).
 """
 
 from __future__ import annotations
@@ -15,8 +13,12 @@ from typing import Optional
 
 from articulated_pose_tpu_torch.registry import CategorySpec, get_category
 
-_UNPORTED_POLICY = ("head_compute_dtype", "pool_compute_dtype",
-                    "act_compute_dtype")
+DTYPE_NAMES = ("float32", "bfloat16")
+_POLICY_DTYPES = ("head_compute_dtype", "pool_compute_dtype",
+                  "act_compute_dtype")
+# the stages f32_stages may pin (config.py:152): the presets' two-level
+# backbone
+F32_STAGES = ("sa1", "sa2", "sa_global", "fp1", "fp2", "fp3", "fc1")
 
 
 @dataclasses.dataclass
@@ -30,9 +32,13 @@ class NetworkConfig:
     dropout_rate: float = 0.5          # identity in eval; kept for parity
     backbone_preset: str = "reference"  # 'reference' | 'tiny'
     compute_dtype: str = "float32"     # 'float32' | 'bfloat16' trunk
+    # mixed-precision policy under a bf16 trunk (None = compute_dtype):
+    # the heads' dtype; what each SA stage's last layer emits and pools
+    # in; what every backbone layer emits
     head_compute_dtype: Optional[str] = None
     pool_compute_dtype: Optional[str] = None
     act_compute_dtype: Optional[str] = None
+    # backbone stages computed in f32 whatever compute_dtype says
     f32_stages: tuple = ()
     # the JAX package's kernel-tier switches (config.py:66,73): with
     # use_pallas the ball query takes the "pallas" route, where
@@ -48,19 +54,26 @@ class NetworkConfig:
     seed: int = 0
 
     def __post_init__(self):
-        for name in _UNPORTED_POLICY:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (mixed-precision policy)")
-        if self.f32_stages:
-            raise NotImplementedError("f32_stages is not ported yet")
         if self.nocs_type not in ("ancsh", "npcs"):
             raise ValueError(
                 f"nocs_type must be 'ancsh' or 'npcs', got {self.nocs_type!r}")
-        if self.compute_dtype not in ("float32", "bfloat16"):
+        if self.compute_dtype not in DTYPE_NAMES:
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got "
                 f"{self.compute_dtype!r}")
+        for name in _POLICY_DTYPES:
+            if getattr(self, name) not in (None,) + DTYPE_NAMES:
+                raise ValueError(f"{name} must be None, float32 or bfloat16, "
+                                 f"got {getattr(self, name)!r}")
+        # a silently ignored typo would undo the pin this field exists
+        # for: strip, make a tuple, raise on an unknown name, as JAX's
+        # load_config does (config.py:146-155)
+        stages = tuple(str(s).strip() for s in self.f32_stages)
+        bad = [s for s in stages if s not in F32_STAGES]
+        if bad:
+            raise ValueError(
+                f"unknown f32_stages {bad}; valid: {sorted(F32_STAGES)}")
+        self.f32_stages = stages
 
     @property
     def is_mixed(self) -> bool:

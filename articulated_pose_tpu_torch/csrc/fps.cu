@@ -1,11 +1,16 @@
-// Two-level farthest point sampling: (B, N, 3) -> N -> np1 -> np2.
+// Farthest point sampling, two-level (B, N, 3) -> N -> np1 -> np2 and
+// single-level (B, N, 3) -> npoint.
 //
-// Replaces the TPU kernel articulated_pose_tpu/ops/pallas/fps.py::
-// farthest_point_sample2_pallas (body _fps2_kernel).  Same semantics:
-// the first pick is index 0, every later pick maximises the running
-// minimum squared distance (dx*dx + dy*dy) + dz*dz to the picked set,
-// ties go to the lowest index, and level 2 runs on the np1 picks, so
-// idx2 holds LOCAL indices into the level-1 subset.
+// fps2_launch (K1) replaces the TPU kernel articulated_pose_tpu/ops/
+// pallas/fps.py::farthest_point_sample2_pallas (body _fps2_kernel);
+// fps_launch (B2) replaces farthest_point_sample_pallas (body
+// _fps_kernel), which the backbone runs once per SA stage when its
+// pyramid is not two-level.  Same semantics in both: the first pick is
+// index 0, every later pick maximises the running minimum squared
+// distance (dx*dx + dy*dy) + dz*dz to the picked set, ties go to the
+// lowest index, and level 2 runs on the np1 picks, so idx2 holds LOCAL
+// indices into the level-1 subset.  Both run the one recurrence below,
+// fps_level: the single-level kernel is its first level alone.
 //
 // What bounds it on the card: the recurrence is serial in the picks
 // (np1 + np2 block-wide argmax steps per cloud), so it is latency bound,
@@ -212,19 +217,77 @@ __global__ void __launch_bounds__(threads_of<V>())
   }
 }
 
+// One level alone: the picks of each cloud and their coordinates.  The
+// kSmem layout is fps2_kernel's with no level-2 capture (np1 = 0).
+template <int V>
+__global__ void __launch_bounds__(threads_of<V>())
+    fps_kernel(const float* __restrict__ xyz, int n, int npoint,
+               int* __restrict__ idx, float* __restrict__ new_xyz,
+               float* __restrict__ scratch) {
+  constexpr int kThreads = threads_of<V>();
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const float* cloud = xyz + static_cast<size_t>(b) * n * 3;
+  int* i1 = idx + static_cast<size_t>(b) * npoint;
+  float* x1 = new_xyz + static_cast<size_t>(b) * npoint * 3;
+
+  if (V == kSmem) {
+    float* sx = smem;
+    float* sy = sx + n;
+    float* sz = sy + n;
+    float* mind = sz + n;
+    float* red_v = mind + n;
+    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+    int* winner = red_i + kWarps;
+    for (int k = threadIdx.x; k < n; k += kThreads) {
+      sx[k] = cloud[3 * k + 0];
+      sy[k] = cloud[3 * k + 1];
+      sz[k] = cloud[3 * k + 2];
+    }
+    __syncthreads();
+    fps_level<kThreads>(Planes{sx, sy, sz}, mind, n, npoint, i1, x1, nullptr,
+                        nullptr, nullptr, red_v, red_i, winner);
+  } else {
+    float* mind = V == kSmemState ? smem : scratch + static_cast<size_t>(b) * n;
+    float* red_v = V == kSmemState ? smem + n : smem;
+    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+    int* winner = red_i + kWarps;
+    fps_level<kThreads>(Rows{cloud}, mind, n, npoint, i1, x1, nullptr,
+                        nullptr, nullptr, red_v, red_i, winner);
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit when it needs more than
+// the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int V>
 int launch(const float* xyz, int batch, int n, int np1, int np2, int* idx1,
            float* xyz1, int* idx2, float* xyz2, float* scratch,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<V>(n, np1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fps2_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(fps2_kernel<V>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   fps2_kernel<V><<<batch, threads_of<V>(), smem, stream>>>(
       xyz, n, np1, np2, idx1, xyz1, idx2, xyz2, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int V>
+int launch_single(const float* xyz, int batch, int n, int npoint, int* idx,
+                  float* new_xyz, float* scratch, cudaStream_t stream) {
+  const size_t smem = smem_bytes<V>(n, 0);
+  const cudaError_t err = allow_smem(fps_kernel<V>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fps_kernel<V><<<batch, threads_of<V>(), smem, stream>>>(
+      xyz, n, npoint, idx, new_xyz, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,6 +324,29 @@ int fps2_launch(int variant, const float* xyz, int batch, int n, int np1,
       if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return launch<kGlobal>(xyz, batch, n, np1, np2, idx1, xyz1, idx2, xyz2,
                              scratch, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The single level: one block per cloud on `stream`, the variant's
+// shared memory being fps2_smem_bytes(variant, n, 0); scratch as for
+// fps2_launch.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for an unknown variant.
+int fps_launch(int variant, const float* xyz, int batch, int n, int npoint,
+               int* idx, float* new_xyz, float* scratch,
+               cudaStream_t stream) {
+  switch (variant) {
+    case kSmem:
+      return launch_single<kSmem>(xyz, batch, n, npoint, idx, new_xyz,
+                                  scratch, stream);
+    case kSmemState:
+      return launch_single<kSmemState>(xyz, batch, n, npoint, idx, new_xyz,
+                                       scratch, stream);
+    case kGlobal:
+      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_single<kGlobal>(xyz, batch, n, npoint, idx, new_xyz,
+                                    scratch, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

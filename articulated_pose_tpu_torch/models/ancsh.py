@@ -7,11 +7,13 @@ global_translation (B, N, 3K) tanh and gocs_per_point = nocs · scale
 (repeated 3× per part, interleaved) + translation; with pred_joint the
 joint head's joint_axis / unitvec (tanh), heatmap (sigmoid) and
 index_per_point (softmax).  Inference only; dropout is the identity.
+The heads run in `head_dtype` (None = the trunk's `dtype`); the
+backbone takes the rest of the mixed-precision policy (ancsh.py:73-96).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -57,14 +59,22 @@ class ANCSHModel(nn.Module):
     def __init__(self, n_max_parts: int = 3, mixed: bool = True,
                  pred_joint: bool = True, early_split_nocs: bool = True,
                  backbone_spec: BackboneSpec = BackboneSpec(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 head_dtype: Optional[torch.dtype] = None,
+                 pool_dtype: Optional[torch.dtype] = None,
+                 act_dtype: Optional[torch.dtype] = None,
+                 f32_stages: Sequence[str] = (), in_features: int = 0):
         super().__init__()
         K = n_max_parts
         self.n_max_parts = K
         self.mixed = mixed
         self.pred_joint = pred_joint
         self.early_split_nocs = early_split_nocs
-        self.backbone = PointNet2Backbone(backbone_spec, dtype=dtype)
+        self.backbone = PointNet2Backbone(
+            backbone_spec, dtype=dtype, in_features=in_features,
+            pool_dtype=pool_dtype, act_dtype=act_dtype,
+            f32_stages=tuple(f32_stages))
+        hdt = dtype if head_dtype is None else head_dtype
         width = backbone_spec.head_width
         out_dims = [K, 3 * K] + ([K, 3 * K] if mixed else []) + [1]
         self.n_heads = len(out_dims)
@@ -72,11 +82,11 @@ class ANCSHModel(nn.Module):
             cin = width
             if early_split_nocs and i == 1:
                 # private branch for part-NOCS (lib/architecture.py:110-113)
-                self.add_module(f"fc11_{i}", _head(width, 128, dtype))
+                self.add_module(f"fc11_{i}", _head(width, 128, hdt))
                 cin = 128
-            self.add_module(f"fc2_{i}", _head(cin, d, dtype))
+            self.add_module(f"fc2_{i}", _head(cin, d, hdt))
         if pred_joint:
-            self.joint_net = JointHead(width, K, dtype)
+            self.joint_net = JointHead(width, K, hdt)
 
     def forward(self, P: torch.Tensor) -> Dict[str, torch.Tensor]:
         feat = self.backbone(P)
@@ -117,12 +127,16 @@ class ANCSHModel(nn.Module):
         return pred
 
 
+def _dtype_or_none(name: Optional[str]) -> Optional[torch.dtype]:
+    return None if name is None else DTYPES[name]
+
+
 def build_model(config, generator: Optional[torch.Generator] = None,
                 device=None) -> ANCSHModel:
     """The model of a NetworkConfig, in eval mode, with the reference's
     initialisation drawn from `generator`.  The ball-query route follows
-    `use_pallas` and `ball_query_packed` as the JAX package's
-    build_model maps them (ancsh.py:162-177)."""
+    `use_pallas` and `ball_query_packed`, the dtypes the mixed-precision
+    knobs, as the JAX package's build_model maps them (ancsh.py:153-186)."""
     widths = TINY_WIDTHS if config.backbone_preset == "tiny" else {}
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
@@ -136,6 +150,10 @@ def build_model(config, generator: Optional[torch.Generator] = None,
             ball_query_impl="pallas" if config.use_pallas else "xla",
             ball_query_packed=config.ball_query_packed, **widths),
         dtype=DTYPES[config.compute_dtype],
+        head_dtype=_dtype_or_none(config.head_compute_dtype),
+        pool_dtype=_dtype_or_none(config.pool_compute_dtype),
+        act_dtype=_dtype_or_none(config.act_compute_dtype),
+        f32_stages=tuple(config.f32_stages),
     )
     init_weights(model, generator)
     return model.to(device).eval()

@@ -2,9 +2,10 @@
 
 Tensors are channels-last, (B, N, C) or (B, M, S, C), so a 1×1 conv is an
 `nn.Linear` over the last axis.  Parameters and batch-norm statistics stay
-f32; `dtype` is the compute dtype of the matmul and of what the layer
-emits.  Only inference is ported: batch norm uses its running statistics
-and the modules refuse to run in training mode.
+f32; `dtype` is the compute dtype of the matmul and, unless `out_dtype`
+says otherwise, of what the layer emits (the mixed-precision policy of
+layers.py:75-123).  Only inference is ported: batch norm uses its running
+statistics and the modules refuse to run in training mode.
 """
 
 from __future__ import annotations
@@ -46,35 +47,48 @@ class ScheduledBatchNorm(nn.Module):
 
 
 class PointConv(nn.Module):
-    """Pointwise Linear (+ batch norm) (+ ReLU), computed in `dtype`."""
+    """Pointwise Linear (+ batch norm) (+ ReLU), computed in `dtype`; the
+    batch norm emits `out_dtype` (None = dtype), or without one the
+    output is cast to it (layers.py:75-98)."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = True,
-                 relu: bool = True, dtype: torch.dtype = torch.float32):
+                 relu: bool = True, dtype: torch.dtype = torch.float32,
+                 out_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.out_dtype = dtype if out_dtype is None else out_dtype
         self.relu = relu
         self.dense = nn.Linear(in_features, features)
-        self.bn = ScheduledBatchNorm(features, dtype) if use_bn else None
+        self.bn = (ScheduledBatchNorm(features, self.out_dtype) if use_bn
+                   else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         y = F.linear(x.to(dt), self.dense.weight.to(dt),
                      self.dense.bias.to(dt))
-        if self.bn is not None:
-            y = self.bn(y)
+        y = self.bn(y) if self.bn is not None else y.to(self.out_dtype)
         return F.relu(y) if self.relu else y
 
 
 class SharedMLP(nn.Module):
-    """A stack of PointConv layers named conv0, conv1, ... (as in Flax)."""
+    """A stack of PointConv layers named conv0, conv1, ... (as in Flax).
+
+    The last layer emits `out_dtype`, every layer `act_dtype` when that
+    is set (it overrides out_dtype); None means `dtype`
+    (layers.py:104-123)."""
 
     def __init__(self, in_features: int, channels: Sequence[int],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 out_dtype: Optional[torch.dtype] = None,
+                 act_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.out_features = in_features
+        last = len(channels) - 1
         for i, ch in enumerate(channels):
+            odt = act_dtype if act_dtype is not None else (
+                out_dtype if i == last else None)
             self.add_module(f"conv{i}", PointConv(self.out_features, ch,
-                                                  dtype=dtype))
+                                                  dtype=dtype, out_dtype=odt))
             self.out_features = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,35 +14,49 @@ functions (pointnet2.py:72-113):
   "xla" route ignores `ball_query_packed`;
 - "stream", the large-cloud tier, returns indices only
   (`ball_query_idx`), and the centred coordinates are gathered after;
-- "bucket" and "bucket_xla" (B8, a bucket-sampled ball query) are not
-  ported yet and raise.
+- "bucket" and "bucket_xla" are the bucket-sampled ball query (B8,
+  `ball_query_group_bucket`): one hit per bucket of the padded cloud.
+  "bucket" takes the kernel's bf16-rounded coordinates; "bucket_xla"
+  takes its indices and gathers f32 offsets, as JAX does after
+  `ops.query_ball_point_bucket`.  JAX resolves both to the exact query
+  off a TPU (`resolve_impl`, pointnet2.py:27-37); the port keeps the
+  bucket semantics on every device.
 
 FPS and 3-NN have one function whatever the reference's `fps_impl` or
-`three_nn_impl` says, so those strings are not carried over.
+`three_nn_impl` says, so those strings are not carried over: a
+two-level pyramid runs the fused two-level kernel (`fps2`), any other
+one the single-level kernel (`fps`) per stage, as JAX's Pallas tier does
+(pointnet2.py:290-302).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels.ball_query import (
-    ball_query_group, ball_query_group_packed, ball_query_idx)
-from articulated_pose_tpu_torch.ops.kernels.fps import fps2
+    ball_query_group, ball_query_group_bucket, ball_query_group_packed,
+    ball_query_idx)
+from articulated_pose_tpu_torch.ops.kernels.fps import fps, fps2
 from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
 from articulated_pose_tpu_torch.models.layers import PointConv, SharedMLP
 
 
-BALL_QUERY_IMPLS = ("xla", "pallas", "stream")
+BALL_QUERY_IMPLS = ("xla", "pallas", "stream", "bucket", "bucket_xla")
 
 
 @dataclasses.dataclass(frozen=True)
 class BackboneSpec:
-    """Stage widths; defaults are the reference widths (architectures.py:62-93)."""
+    """Stage widths; defaults are the reference widths (architectures.py:62-93).
+
+    Any number of SA stages; the FP stages are one more (the backbone
+    adds a global SA stage), so that the last one ends at full
+    resolution (pointnet2.py:331-344).
+    """
 
     sa_npoints: Tuple[int, ...] = (512, 128)
     sa_radii: Tuple[float, ...] = (0.2, 0.4)
@@ -53,21 +67,22 @@ class BackboneSpec:
                                             (128, 128, 128))
     head_width: int = 128
     dropout_rate: float = 0.5
-    ball_query_impl: str = "xla"  # 'xla' | 'pallas' | 'stream'
+    ball_query_impl: str = "xla"  # one of BALL_QUERY_IMPLS
     # with ball_query_impl="pallas": the 10-bit-quantised coordinate tier
     ball_query_packed: bool = False
 
     def __post_init__(self):
-        if len(self.sa_npoints) != 2 or len(self.fp_mlps) != 3:
-            # the port runs the fused two-level FPS kernel only; the
-            # single-level kernel is still to be ported
-            raise NotImplementedError(
-                "the port supports the two-level SA pyramid (two SA stages, "
-                "three FP stages) only")
-        if self.ball_query_impl in ("bucket", "bucket_xla"):
-            raise NotImplementedError(
-                f"ball_query_impl={self.ball_query_impl!r}: the bucket "
-                "ball query (B8, ball_query_bucket.py) is not ported yet")
+        n = len(self.sa_npoints)
+        if n == 0 or not (len(self.sa_radii) == len(self.sa_nsamples)
+                          == len(self.sa_mlps) == n):
+            raise ValueError(
+                "sa_npoints, sa_radii, sa_nsamples and sa_mlps need one "
+                "entry per SA stage, at least one")
+        if len(self.fp_mlps) != n + 1:
+            raise ValueError(
+                f"len(fp_mlps) must be len(sa_npoints) + 1 = {n + 1} (one "
+                f"FP stage per SA stage and the global one), got "
+                f"{len(self.fp_mlps)}")
         if self.ball_query_impl not in BALL_QUERY_IMPLS:
             raise ValueError(f"unknown ball_query_impl "
                              f"{self.ball_query_impl!r}")
@@ -79,29 +94,92 @@ TINY_WIDTHS = dict(sa_npoints=(64, 32), sa_nsamples=(16, 16),
                    fp_mlps=((32,), (32,), (16, 16)), head_width=16)
 
 
+def group(radius: float, nsample: int, xyz: torch.Tensor,
+          new_xyz: torch.Tensor, emit_idx: bool, ball_query_impl: str = "xla",
+          ball_query_packed: bool = False):
+    """Centred neighbourhood coordinates (B, M, S, 3) f32 and, when
+    emit_idx, their indices (B, M, S), by ball-query tier
+    (pointnet2.py:72-113)."""
+    bq = ball_query_impl
+    if bq == "stream":
+        idx, _ = ball_query_idx(radius, nsample, xyz, new_xyz)
+        grouped = None
+    elif bq == "bucket_xla":
+        _, _, idx = ball_query_group_bucket(radius, nsample, xyz, new_xyz)
+        grouped = None
+    elif bq == "bucket":
+        grouped, _, idx = ball_query_group_bucket(radius, nsample, xyz,
+                                                  new_xyz, emit_idx=emit_idx)
+    elif bq == "pallas" and ball_query_packed:
+        grouped, _, idx = ball_query_group_packed(radius, nsample, xyz,
+                                                  new_xyz, emit_idx=emit_idx)
+    else:
+        grouped, _, idx = ball_query_group(radius, nsample, xyz, new_xyz,
+                                           emit_idx=emit_idx)
+    if grouped is None:
+        grouped = core.group_point(xyz, idx) - new_xyz[:, :, None]
+    return grouped, idx
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int,
+                     xyz: torch.Tensor, points: Optional[torch.Tensor],
+                     dtype: torch.dtype, ball_query_impl: str = "xla",
+                     ball_query_packed: bool = False, precomputed_fps=None):
+    """FPS → ball query → group → centre (pointnet2.py:40-120).
+
+    xyz (B, N, 3) f32, points (B, N, C) or None -> (new_xyz (B, M, 3),
+    new_points (B, M, S, 3 + C)).
+    `precomputed_fps` = (idx, new_xyz) from the two-level kernel.
+    new_points is concatenated in `dtype`, the compute dtype of the MLP
+    that consumes it: JAX concatenates in the promoted dtype and the
+    MLP's first layer casts to its own, which rounds the same.
+    """
+    if precomputed_fps is not None:
+        _, new_xyz = precomputed_fps
+    else:
+        _, new_xyz = fps(xyz, npoint)
+    grouped, idx = group(radius, nsample, xyz, new_xyz, points is not None,
+                         ball_query_impl, ball_query_packed)
+    if points is None:
+        return new_xyz, grouped
+    return new_xyz, torch.cat([grouped.to(dtype),
+                               core.group_point(points, idx).to(dtype)],
+                              dim=-1)
+
+
 class SetAbstraction(nn.Module):
     """Shared MLP over each neighbourhood, then max pool over its S points.
 
-    The neighbourhoods are built by the caller (`PointNet2Backbone`), so
+    The neighbourhoods are built by the caller (`sample_and_group`), so
     the module only holds weights: input (B, M, S, C) -> (B, M, C').
+    The last MLP layer emits `pool_dtype` and the pool runs in it; the
+    pooled output is cast to `act_dtype`, or else to `dtype`
+    (pointnet2.py:177-195).
     """
 
-    def __init__(self, in_features: int, mlp, dtype: torch.dtype):
+    def __init__(self, in_features: int, mlp, dtype: torch.dtype,
+                 pool_dtype: Optional[torch.dtype] = None,
+                 act_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.mlp = SharedMLP(in_features, mlp, dtype=dtype)
+        self.out_dtype = act_dtype if act_dtype is not None else dtype
+        self.mlp = SharedMLP(in_features, mlp, dtype=dtype,
+                             out_dtype=pool_dtype, act_dtype=act_dtype)
         self.out_features = self.mlp.out_features
 
     def forward(self, grouped: torch.Tensor) -> torch.Tensor:
-        return self.mlp(grouped).amax(dim=2).to(self.dtype)
+        return self.mlp(grouped).amax(dim=2).to(self.out_dtype)
 
 
 class FeaturePropagation(nn.Module):
     """3-NN inverse-distance interpolation, skip concat, shared MLP."""
 
-    def __init__(self, in_features: int, mlp, dtype: torch.dtype):
+    def __init__(self, in_features: int, mlp, dtype: torch.dtype,
+                 act_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.mlp = SharedMLP(in_features, mlp, dtype=dtype)
+        self.dtype = dtype
+        self.mlp = SharedMLP(in_features, mlp, dtype=dtype,
+                             act_dtype=act_dtype)
         self.out_features = self.mlp.out_features
 
     def forward(self, xyz1, xyz2, points1: Optional[torch.Tensor],
@@ -114,81 +192,106 @@ class FeaturePropagation(nn.Module):
             interp = core.three_interpolate(points2, idx,
                                             core.interp_weights(dist))
         if points1 is not None:
-            interp = torch.cat([interp, points1.to(interp.dtype)], dim=-1)
+            # concatenated in the MLP's compute dtype (see sample_and_group)
+            interp = torch.cat([interp.to(self.dtype),
+                                points1.to(self.dtype)], dim=-1)
         return self.mlp(interp)
 
 
 class PointNet2Backbone(nn.Module):
-    """(B, N, 3) cloud -> (B, N, head_width) per-point feature.
+    """(B, N, 3 + in_features) cloud -> (B, N, head_width) per-point feature.
 
-    Module names follow the Flax tree (sa1, sa2, sa_global, fp1..fp3, fc1)
-    so `convert.state_dict_from_flax` maps one onto the other by name.
+    Module names follow the Flax tree (sa1..saL, sa_global, fp1..fp(L+1),
+    fc1), so `convert.state_dict_from_flax` maps one onto the other by
+    name.  Flax infers the width of the input features; a PyTorch module
+    is built before it sees one, so it takes `in_features`.  The
+    mixed-precision policy is the JAX backbone's: `pool_dtype` and
+    `act_dtype` as in `SetAbstraction`, and `f32_stages` naming the stages
+    that compute in f32 whatever `dtype` says (pointnet2.py:261-286).
     """
 
     def __init__(self, spec: BackboneSpec = BackboneSpec(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, in_features: int = 0,
+                 pool_dtype: Optional[torch.dtype] = None,
+                 act_dtype: Optional[torch.dtype] = None,
+                 f32_stages: Sequence[str] = ()):
         super().__init__()
+        valid = ({f"sa{i + 1}" for i in range(len(spec.sa_npoints))}
+                 | {f"fp{i + 1}" for i in range(len(spec.fp_mlps))}
+                 | {"sa_global", "fc1"})
+        bad = [n for n in f32_stages if n not in valid]
+        if bad:
+            raise ValueError(
+                f"unknown f32_stages {bad}; valid: {sorted(valid)}")
         self.spec = spec
-        self.dtype = dtype
+        self.in_features = in_features
+        f32 = set(f32_stages)
+
+        def stage_dtype(name: str) -> torch.dtype:
+            return torch.float32 if name in f32 else dtype
+
         s = spec
-        self.sa1 = SetAbstraction(3, s.sa_mlps[0], dtype)
-        self.sa2 = SetAbstraction(3 + self.sa1.out_features, s.sa_mlps[1],
-                                  dtype)
-        self.sa_global = SetAbstraction(3 + self.sa2.out_features,
-                                        s.global_mlp, dtype)
-        # FP l: interpolated coarse feature ++ skip of level 2 - l
-        skips = [self.sa2.out_features, self.sa1.out_features, 3]
+        widths = [in_features]                  # feature width per level
+        for i, mlp in enumerate(s.sa_mlps):
+            sa = SetAbstraction(3 + widths[-1], mlp, stage_dtype(f"sa{i + 1}"),
+                                pool_dtype, act_dtype)
+            self.add_module(f"sa{i + 1}", sa)
+            widths.append(sa.out_features)
+        self.sa_global = SetAbstraction(3 + widths[-1], s.global_mlp,
+                                        stage_dtype("sa_global"), pool_dtype,
+                                        act_dtype)
+        # FP i: interpolated coarse feature ++ skip of level L - i, where
+        # level 0's skip is [xyz, input features] (pointnet2.py:331-344)
         width = self.sa_global.out_features
+        skips = widths[:0:-1] + [3 + in_features]
         for i, (mlp, skip) in enumerate(zip(s.fp_mlps, skips)):
-            fp = FeaturePropagation(width + skip, mlp, dtype)
+            fp = FeaturePropagation(width + skip, mlp,
+                                    stage_dtype(f"fp{i + 1}"), act_dtype)
             self.add_module(f"fp{i + 1}", fp)
             width = fp.out_features
-        self.fc1 = PointConv(width, s.head_width, dtype=dtype)
-
-    def group(self, radius: float, nsample: int, xyz: torch.Tensor,
-              new_xyz: torch.Tensor, emit_idx: bool):
-        """Centred neighbourhood coordinates (B, M, S, 3) and, when
-        emit_idx, their indices (B, M, S), by the spec's ball-query tier
-        (sample_and_group, pointnet2.py:72-113)."""
-        s = self.spec
-        if s.ball_query_impl == "stream":
-            idx, _ = ball_query_idx(radius, nsample, xyz, new_xyz)
-            return core.group_point(xyz, idx) - new_xyz[:, :, None], idx
-        if s.ball_query_impl == "pallas" and s.ball_query_packed:
-            grouped, _, idx = ball_query_group_packed(
-                radius, nsample, xyz, new_xyz, emit_idx=emit_idx)
-        else:
-            grouped, _, idx = ball_query_group(radius, nsample, xyz, new_xyz,
-                                               emit_idx=emit_idx)
-        return grouped, idx
+        self.fc1 = PointConv(width, s.head_width, dtype=stage_dtype("fc1"),
+                             out_dtype=act_dtype)
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         s = self.spec
-        if X.shape[-1] != 3:
-            raise NotImplementedError("the port takes xyz-only clouds "
-                                      "(B, N, 3)")
-        xyz0 = X.float().contiguous()
-        _, xyz1, idx2, xyz2 = fps2(xyz0, s.sa_npoints[0], s.sa_npoints[1])
+        B, _, C = X.shape
+        if C != 3 + self.in_features:
+            raise ValueError(f"expected (B, N, {3 + self.in_features}) "
+                             f"clouds (in_features={self.in_features}), got "
+                             f"{tuple(X.shape)}")
+        l_xyz = [X[..., :3].float().contiguous()]
+        l_pts = [X[..., 3:] if self.in_features else None]
 
-        # SA1: neighbourhoods of the np1 picks; the centred coordinates
-        # are the whole input, so no index plane is needed
-        g1, _ = self.group(s.sa_radii[0], s.sa_nsamples[0], xyz0, xyz1,
-                           emit_idx=False)
-        pts1 = self.sa1(g1)                                   # (B, np1, C1)
+        # both FPS levels in one kernel for the two-level pyramid
+        pre = [None] * len(s.sa_npoints)
+        if len(s.sa_npoints) == 2:
+            i1, x1, i2, x2 = fps2(l_xyz[0], s.sa_npoints[0], s.sa_npoints[1])
+            pre = [(i1, x1), (i2, x2)]
 
-        # SA2: [centred xyz, grouped SA1 features] (pointnet2.py:116)
-        g2, idx = self.group(s.sa_radii[1], s.sa_nsamples[1], xyz1, xyz2,
-                             emit_idx=True)
-        grouped_pts = core.group_point(pts1, idx)
-        pts2 = self.sa2(torch.cat([g2.to(pts1.dtype), grouped_pts], dim=-1))
+        for i in range(len(s.sa_npoints)):
+            sa = getattr(self, f"sa{i + 1}")
+            xyz, grouped = sample_and_group(
+                s.sa_npoints[i], s.sa_radii[i], s.sa_nsamples[i], l_xyz[-1],
+                l_pts[-1], sa.dtype, s.ball_query_impl, s.ball_query_packed,
+                precomputed_fps=pre[i])
+            l_xyz.append(xyz)
+            l_pts.append(sa(grouped))
 
-        # global SA over [xyz, features] of all np2 points (:130)
-        glob = torch.cat([xyz2.to(pts2.dtype), pts2], dim=-1)[:, None]
-        pts3 = self.sa_global(glob)                           # (B, 1, C3)
-        xyz3 = torch.zeros((X.shape[0], 1, 3), dtype=torch.float32,
-                           device=X.device)
+        # global SA over [xyz, features] of the last level's points (:130)
+        dt = self.sa_global.dtype
+        glob = torch.cat([l_xyz[-1].to(dt), l_pts[-1].to(dt)], dim=-1)
+        l_pts.append(self.sa_global(glob[:, None]))            # (B, 1, C)
+        l_xyz.append(torch.zeros((B, 1, 3), dtype=torch.float32,
+                                 device=X.device))
 
-        feats = self.fp1(xyz2, xyz3, pts2, pts3)
-        feats = self.fp2(xyz1, xyz2, pts1, feats)
-        feats = self.fp3(xyz0, xyz1, xyz0, feats)             # skip = raw xyz
+        feats = l_pts[-1]
+        for i in range(len(s.fp_mlps)):
+            lvl = len(l_xyz) - 2 - i
+            skip = l_pts[lvl]
+            if lvl == 0:
+                # the last skip is raw xyz ++ input features
+                skip = (l_xyz[0] if skip is None
+                        else torch.cat([l_xyz[0], skip.float()], dim=-1))
+            fp = getattr(self, f"fp{i + 1}")
+            feats = fp(l_xyz[lvl], l_xyz[lvl + 1], skip, feats)
         return self.fc1(feats)                                # dropout: identity

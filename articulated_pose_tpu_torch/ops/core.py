@@ -91,6 +91,69 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     return idx.to(torch.int32), cnt.to(torch.int32)
 
 
+def bucket_width(n: int, nsample: int) -> int:
+    """W, the points per slot of the bucket ball query: the cloud padded
+    to a multiple of 128, over nsample.  Raises unless that is a whole
+    power of two (ball_query_bucket.py:160-167, core.py:148-153)."""
+    n_pad = -(-n // 128) * 128
+    w = n_pad // nsample
+    if n_pad % nsample or (w & (w - 1)):
+        raise ValueError(
+            f"bucket ball query needs padded N ({n_pad}) = nsample "
+            f"({nsample}) * power-of-two bucket; use the exact ball query")
+    return w
+
+
+def query_ball_point_bucket(radius: float, nsample: int, xyz: torch.Tensor,
+                            new_xyz: torch.Tensor):
+    """Bucket-sampled ball query (core.py:126-176).
+
+    xyz (B, N, 3), new_xyz (B, M, 3) -> (idx (B, M, nsample) int32,
+    cnt (B, M) int32).  Slot j holds the first point with d² < r² among
+    [j·W, (j+1)·W), W = `bucket_width(N, nsample)`, points at or past N
+    never hitting; slots whose bucket has no hit repeat the first filled
+    slot; zero hits give index 0; cnt counts every hit, capped at
+    nsample.
+    """
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    W = bucket_width(N, nsample)
+    r2 = float(np.float32(radius * radius))
+    hit = pairwise_sqdist(new_xyz, xyz) < r2                  # (B, M, N)
+    cnt = hit.sum(-1).clamp_max(nsample).to(torch.int32)
+    hit = torch.nn.functional.pad(hit, (0, nsample * W - N))
+    # first hit within each bucket: min lane over the bucket axis
+    w_iota = torch.arange(W, device=xyz.device)
+    w_star = torch.where(hit.reshape(B, M, nsample, W), w_iota,
+                         W).amin(-1)                          # (B, M, S)
+    filled = w_star < W
+    s_iota = torch.arange(nsample, device=xyz.device)
+    idx = s_iota * W + w_star.clamp_max(W - 1)
+    # the first filled slot holds the cloud's first hit
+    first_slot = torch.where(filled, s_iota, nsample).amin(-1, keepdim=True)
+    fill = idx.gather(-1, first_slot.clamp_max(nsample - 1))
+    fill = torch.where(first_slot < nsample, fill, 0)
+    return torch.where(filled, idx, fill).to(torch.int32), cnt
+
+
+def query_ball_group_bucket_plain(radius: float, nsample: int,
+                                  xyz: torch.Tensor, new_xyz: torch.Tensor,
+                                  emit_idx: bool = True):
+    """The bucket ball query with its centred coordinates: the plain
+    version of B8 (ball_query_bucket.py:146).
+
+    -> (grouped (B, M, nsample, 3) f32, cnt (B, M) int32, idx or None).
+    A selected point's offset p − q is rounded to bf16 and returned as
+    f32, as the TPU kernel's bf16 matmul carries it (:92-97); with zero
+    hits the offset of point 0 stays unrounded f32 (:128-132).
+    """
+    idx, cnt = query_ball_point_bucket(radius, nsample, xyz, new_xyz)
+    grouped = group_point(xyz.float(), idx) - new_xyz.float()[:, :, None]
+    grouped = torch.where((cnt > 0)[:, :, None, None],
+                          grouped.to(torch.bfloat16).float(), grouped)
+    return grouped, cnt, (idx if emit_idx else None)
+
+
 # the packed tier's grid: 10 bits per component (ball_query_butterfly.py:197)
 QUANT_LEVELS = 1023
 # f32(1/1023), as the reference rounds its `ext * (1.0 / 1023.0)` scalar

@@ -2,17 +2,18 @@
 
 Importing this package builds nothing: a kernel is compiled (nvcc) and
 loaded the first time a CUDA tensor reaches its wrapper
-(`fps.fps2`, `ball_query.ball_query_group`,
+(`fps.fps2`, `fps.fps`, `ball_query.ball_query_group`,
 `ball_query.ball_query_group_packed`, `ball_query.ball_query_idx`,
-`three_nn.three_nn`).
+`ball_query.ball_query_group_bucket`, `three_nn.three_nn`).
 """
 
 from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
 
 # every kernel, by name
-KERNELS = {k.name: k for k in (fps.KERNEL, ball_query.KERNEL,
-                                ball_query.PACKED_KERNEL,
-                                ball_query.IDX_KERNEL, three_nn.KERNEL)}
+KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
+                                ball_query.KERNEL, ball_query.PACKED_KERNEL,
+                                ball_query.IDX_KERNEL,
+                                ball_query.BUCKET_KERNEL, three_nn.KERNEL)}
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,4 @@
-"""Ball query: three CUDA kernels over one source, with their plain versions.
+"""Ball query: four CUDA kernels over two sources, with their plain versions.
 
 - `ball_query_group` (K2) replaces `articulated_pose_tpu/ops/pallas/
   ball_query_butterfly.py::query_ball_group_pallas` (exact transposed body
@@ -11,10 +11,17 @@
 - `ball_query_idx` replaces `ball_query_stream.py::query_ball_point_stream`
   (the large-cloud tier): idx and cnt only; N < 2^24 as there.
 
-All three run `csrc/ball_query.cu`: one warp per query scans the cloud
-in index order with ballot/popc slot ranks and stops at nsample hits;
-its source says what bounds it.  A CPU tensor takes the `*_plain`
-version; a CUDA tensor takes the kernel.
+- `ball_query_group_bucket` (B8) replaces `ball_query_bucket.py::
+  query_ball_group_bucket` (the "bucket" tier): slot j holds the first
+  hit of the j-th of S equal buckets of the padded cloud, its offset
+  rounded to bf16; cnt counts every hit.
+
+The first three run `csrc/ball_query.cu`: one warp per query scans the
+cloud in index order with ballot/popc slot ranks and stops at nsample
+hits.  B8 runs `csrc/ball_query_bucket.cu`: the same warp scan over the
+whole cloud, one first-set-bit per bucket.  The sources say what bounds
+them.  A CPU tensor takes the `*_plain` version; a CUDA tensor takes
+the kernel.
 """
 
 from __future__ import annotations
@@ -191,3 +198,48 @@ def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
     check_rc(IDX_KERNEL, rc, lib.ball_query_error_string)
     IDX_KERNEL.launches += 1
     return idx, cnt
+
+
+def _bind_bucket(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ball_query_bucket_launch.argtypes = [P, P, I, I, I, I, I,
+                                             ctypes.c_float, P, P, P, P]
+    lib.ball_query_bucket_launch.restype = I
+    lib.ball_query_bucket_error_string.argtypes = [I]
+    lib.ball_query_bucket_error_string.restype = ctypes.c_char_p
+
+
+BUCKET_KERNEL = CudaKernel(
+    "ball_query_group_bucket", "ball_query_bucket.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query_bucket.py:146", _bind_bucket)
+
+ball_query_group_bucket_plain = core.query_ball_group_bucket_plain
+
+
+def ball_query_group_bucket(radius: float, nsample: int, xyz: torch.Tensor,
+                            new_xyz: torch.Tensor, emit_idx: bool = True):
+    """The bucket-sampled tier: xyz (B, N, 3), new_xyz (B, M, 3) f32 ->
+    (grouped_xyz (B, M, S, 3), cnt (B, M) i32, idx (B, M, S) i32 or None
+    when not emit_idx).  Slot j holds the first hit among points
+    [j·W, (j+1)·W), its offset rounded to bf16 (`core.
+    query_ball_group_bucket_plain` states the semantics).  Raises
+    ValueError unless ceil(N/128)·128 / S is a whole power of two."""
+    W = core.bucket_width(xyz.shape[1], nsample)
+    if xyz.device.type == "cpu":
+        return ball_query_group_bucket_plain(radius, nsample, xyz, new_xyz,
+                                             emit_idx)
+    B, N, M = _check("ball_query_group_bucket", xyz, new_xyz, nsample)
+    lib = BUCKET_KERNEL.lib()
+    dev = xyz.device
+    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+           if emit_idx else None)
+    with torch.cuda.device(dev):
+        rc = lib.ball_query_bucket_launch(
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, W.bit_length() - 1,
+            _r2(radius), ptr(grouped), ptr(cnt),
+            ptr(idx) if emit_idx else None, stream_of(xyz))
+    check_rc(BUCKET_KERNEL, rc, lib.ball_query_bucket_error_string)
+    BUCKET_KERNEL.launches += 1
+    return grouped, cnt, idx

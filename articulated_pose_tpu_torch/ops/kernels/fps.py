@@ -1,13 +1,18 @@
-"""Two-level farthest point sampling: CUDA kernel K1 and its plain version.
+"""Farthest point sampling: CUDA kernels K1 (two-level) and B2 (one level).
 
-Replaces `articulated_pose_tpu/ops/pallas/fps.py::farthest_point_sample2_pallas`
-(body `_fps2_kernel`).  The kernel (`csrc/fps.cu`) runs one block per
-cloud in one of three variants, picked here by N: the cloud and the
-min-distance state in shared memory ("smem", up to ~14k points), the
-state alone there with the coordinates read from L2 ("smem_state", up
-to ~57k), or both in device memory ("global", any N).  Its source says
-what bounds it and how the design answers.  A CPU tensor takes
-`fps2_plain`; a CUDA tensor takes the kernel.
+- `fps2` (K1) replaces `articulated_pose_tpu/ops/pallas/fps.py::
+  farthest_point_sample2_pallas` (body `_fps2_kernel`): N -> np1 -> np2
+  in one launch, for the two-level SA pyramid.
+- `fps` (B2) replaces `farthest_point_sample_pallas` (body `_fps_kernel`):
+  one level, N -> npoint, run once per SA stage of any other pyramid.
+
+Both run `csrc/fps.cu`: one block per cloud in one of three variants,
+picked here by N: the cloud and the min-distance state in shared memory
+("smem", up to ~14k points), the state alone there with the coordinates
+read from L2 ("smem_state", up to ~57k), or both in device memory
+("global", any N).  Its source says what bounds it and how the design
+answers.  A CPU tensor takes the `*_plain` version; a CUDA tensor takes
+the kernel.
 """
 
 from __future__ import annotations
@@ -37,8 +42,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fps2_error_string.restype = ctypes.c_char_p
 
 
+def _bind_single(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.fps_launch.argtypes = [I, P, I, I, I, P, P, P, P]
+    lib.fps_launch.restype = I
+    _bind(lib)
+
+
 KERNEL = CudaKernel("fps2", "fps.cu",
                     "articulated_pose_tpu/ops/pallas/fps.py:204", _bind)
+SINGLE_KERNEL = CudaKernel("fps", "fps.cu",
+                           "articulated_pose_tpu/ops/pallas/fps.py:69",
+                           _bind_single)
 
 
 def fps2_plain(xyz: torch.Tensor, np1: int, np2: int):
@@ -51,9 +66,9 @@ def fps2_plain(xyz: torch.Tensor, np1: int, np2: int):
 
 
 def fps2_variant(n: int, np1: int) -> str:
-    """The kernel variant fps2 launches for an N-point cloud: the first
-    of VARIANTS whose shared memory fits a block ("global" needs none
-    per point)."""
+    """The kernel variant fps2 launches for an N-point cloud (fps with
+    np1 = 0): the first of VARIANTS whose shared memory fits a block
+    ("global" needs none per point)."""
     lib = KERNEL.lib()
     for v, name in enumerate(VARIANTS[:-1]):
         if lib.fps2_smem_bytes(v, n, np1) <= MAX_SMEM:
@@ -89,3 +104,40 @@ def fps2(xyz: torch.Tensor, np1: int, np2: int):
     check_rc(KERNEL, rc, lib.fps2_error_string)
     KERNEL.launches += 1
     return idx1, xyz1, idx2, xyz2
+
+
+def fps_plain(xyz: torch.Tensor, npoint: int):
+    """FPS followed by a gather: the single-level kernel's semantics."""
+    idx = core.farthest_point_sample(npoint, xyz)
+    return idx, core.gather_point(xyz.float(), idx)
+
+
+def fps_variant(n: int) -> str:
+    """The kernel variant fps launches for an N-point cloud."""
+    return fps2_variant(n, 0)
+
+
+def fps(xyz: torch.Tensor, npoint: int):
+    """xyz (B, N, 3) f32 -> (idx (B, npoint) i32, new_xyz (B, npoint, 3))."""
+    if xyz.device.type == "cpu":
+        return fps_plain(xyz, npoint)
+    require_cuda("fps", xyz)
+    B, N, _ = xyz.shape
+    if not 1 <= npoint <= N or B == 0:
+        raise ValueError(f"fps: need 1 <= npoint <= N and B > 0, got B={B}, "
+                         f"N={N}, npoint={npoint}")
+    lib = SINGLE_KERNEL.lib()
+    variant = fps_variant(N)
+    dev = xyz.device
+    idx = torch.empty((B, npoint), dtype=torch.int32, device=dev)
+    new_xyz = torch.empty((B, npoint, 3), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((B, N), dtype=torch.float32, device=dev)
+               if variant == "global" else None)
+    with torch.cuda.device(dev):
+        rc = lib.fps_launch(VARIANTS.index(variant), ptr(xyz), B, N, npoint,
+                            ptr(idx), ptr(new_xyz),
+                            None if scratch is None else ptr(scratch),
+                            stream_of(xyz))
+    check_rc(SINGLE_KERNEL, rc, lib.fps2_error_string)
+    SINGLE_KERNEL.launches += 1
+    return idx, new_xyz

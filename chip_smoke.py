@@ -9,10 +9,12 @@ is non-zero):
 0. Require a CUDA device; print the card (nvidia-smi name and power
    limit) and the torch / CUDA / nvcc versions.
 1. Build the CUDA sources from csrc/, one nvcc each, all at once.
-2. Hold each of the five kernels against its plain PyTorch version at
-   the shapes its paths give it: the serving path's (B=16, N=2048) and
-   the large-cloud path's (B=4, N=32768): exact indices and counts;
-   coordinates within 1e-6 absolute (equal for the packed tier); 3-NN
+2. Hold each of the seven kernels against its plain PyTorch version at
+   the shapes its paths give it: the serving path's (B=16, N=2048), the
+   large-cloud path's (B=4, N=32768) and the N-level path's (B=8,
+   N=8192 -> 1024 -> 256 -> 64 -> 16): exact indices and counts;
+   coordinates within 1e-6 absolute (equal for the packed and bucket
+   tiers, whose queries include some moved out of the cloud); 3-NN
    distances within 1e-6 relative.  Device time of each, median of 20
    CUDA-event-timed calls (`cuda_time_ms`).
 3. Pose oracle: 8 frames of a 3-part object with two revolute joints and
@@ -30,8 +32,18 @@ is non-zero):
    with the bf16 trunk and ball_query_impl="stream", B=4, N=32768
    (1 FPS in its large-cloud variant, 2 index-only ball query, 2 3-NN
    per forward); the f32 forward on the card against the CPU at B=1.
+6. Bucket path: bench.py's composition (forward + fit_frame_batch, niter
+   128/64) at the reference widths with ball_query_impl="bucket", bf16
+   trunk, three batches of 64 clouds (1 two-level FPS, 2 bucket ball
+   query, 2 3-NN per batch); the f32 forward on the card against the CPU
+   at B=2; the distance to the exact bf16 forward (printed, no bound:
+   another neighbour subset); one "bucket_xla" forward.
+7. N-level path: the four-level pyramid of PointNet++'s semantic
+   segmentation network under the ANCSH heads, B=8, N=8192, bf16 and
+   f32 (4 single-level FPS, 4 exact ball query, 4 3-NN per forward);
+   the f32 forward on the card against the CPU at B=1.
 
-Each path of phases 4-5 runs with the launch counts set to 0 just
+Each path of phases 4-7 runs with the launch counts set to 0 just
 before it and read just after, and fails unless each of its kernels
 launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
@@ -61,6 +73,20 @@ ORACLE_FRAMES = 8
 LARGE_B = 4                         # scripts/run_large_cloud.py's shape
 LARGE_N = 32768
 LARGE_FORWARDS = 3
+BUCKET_BATCH = 64                   # bench.py's batch
+BUCKET_BATCHES = 3
+# charlesq34/pointnet2 models/pointnet2_sem_seg.py: four SA levels on
+# ScanNet clouds of 8192 points, its four FP stages, and the global SA
+# stage the backbone always adds (with its FP stage first)
+NLEVEL_SPEC = dict(
+    sa_npoints=(1024, 256, 64, 16), sa_radii=(0.1, 0.2, 0.4, 0.8),
+    sa_nsamples=(32, 32, 32, 32),
+    sa_mlps=((32, 32, 64), (64, 64, 128), (128, 128, 256), (256, 256, 512)),
+    global_mlp=(256, 512, 1024),
+    fp_mlps=((256, 256), (256, 256), (256, 256), (256, 128), (128, 128, 128)))
+NLEVEL_B = 8
+NLEVEL_N = 8192
+NLEVEL_FORWARDS = 3
 
 
 def log(msg: str) -> None:
@@ -174,6 +200,24 @@ def compare_fps(clouds):
     return kernel_result(err, times, shapes), picks
 
 
+def compare_fps_single(cases):
+    """B2 at each (cloud, npoint) of its paths.  Returns the JSON entry."""
+    from articulated_pose_tpu_torch.ops.kernels import fps
+
+    err, times, shapes = 0.0, [], []
+    for cloud, npoint in cases:
+        B, N, _ = cloud.shape
+        err = max(err, check_equal("fps", fps.fps(cloud, npoint),
+                                   fps.fps_plain(cloud, npoint)))
+        t = time_both(lambda: fps.fps(cloud, npoint),
+                      lambda: fps.fps_plain(cloud, npoint))
+        shape = f"B{B} N{N}->{npoint} ({fps.fps_variant(N)})"
+        log(f"[kernels] fps {shape}: indices and coordinates equal; {t[4]}")
+        times.append(t)
+        shapes.append(shape)
+    return kernel_result(err, times, shapes)
+
+
 def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound):
     """A grouped ball query (exact or packed) at each (points, queries,
     radius, emit_idx) of its path, S=64: cnt and idx equal, coordinates
@@ -206,7 +250,8 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound):
 def compare_kernels(dev):
     import torch
 
-    from articulated_pose_tpu_torch.ops.kernels import ball_query, three_nn
+    from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
+                                                        three_nn)
 
     rng = np.random.RandomState(0)
     cloud = torch.from_numpy(
@@ -231,6 +276,31 @@ def compare_kernels(dev):
     results["ball_query_group_packed"] = compare_grouping(
         "ball_query_group_packed", ball_query.ball_query_group_packed,
         ball_query.ball_query_group_packed_plain, serve_cases, 0.0)
+
+    # B2: the serving cloud's first level, and the N-level path's chain
+    # 8192 -> 1024 -> 256 -> 64 -> 16, each level on the last one's picks
+    nlevel = torch.from_numpy(
+        rng.rand(NLEVEL_B, NLEVEL_N, 3).astype(np.float32)).to(dev)
+    chain, level = [], nlevel
+    for npoint in NLEVEL_SPEC["sa_npoints"]:
+        chain.append((level, npoint))
+        level = fps.fps(level, npoint)[1]
+    results["fps"] = compare_fps_single([(cloud, 512)] + chain)
+
+    # B8 at SA1 and SA2, a few queries moved out of the cloud so that
+    # the zero-hit fallback runs; every output equal
+    far1, far2 = xyz1.clone(), xyz2.clone()
+    far1[:, :4] += 10.0
+    far2[:, :4] += 10.0
+    results["ball_query_group_bucket"] = compare_grouping(
+        "ball_query_group_bucket", ball_query.ball_query_group_bucket,
+        ball_query.ball_query_group_bucket_plain,
+        ((cloud, far1, 0.2, False), (xyz1, far2, 0.4, True)), 0.0)
+    for pts, q, r in ((cloud, far1, 0.2), (xyz1, far2, 0.4)):
+        _, cnt, _ = ball_query.ball_query_group_bucket(r, 64, pts, q, False)
+        if not ((cnt[:, :4] == 0).all() and (cnt[:, 4:] > 0).all()):
+            raise AssertionError("ball_query_group_bucket: the moved "
+                                 "queries must be the only ones with no hit")
 
     # B6: the large-cloud path's SA1 (32768 -> 512) and SA2 (512 -> 128)
     times, shapes = [], []
@@ -474,7 +544,59 @@ def serve(dev):
     return paths
 
 
-# ---------------------------------------------------------------- phase 5
+# ------------------------------------------------------------ phases 5-7
+def forward_launches(label, model, P, per_forward, forwards=1):
+    """Run `forwards` forwards of P with the launch counts set to 0
+    first; check each forward's launches, shapes and finiteness.
+    Returns (last output, host-clock seconds per forward, counts)."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    reset_launch_counts()
+    seconds = []
+    for f in range(forwards):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(P)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        after = launch_counts()
+        rise = {k: after[k] - before[k] for k in after}
+        if rise != per_forward:
+            raise AssertionError(f"[{label}] forward {f}: kernel launches "
+                                 f"{rise}, expected {per_forward}")
+        for k, v in out.items():
+            if v.shape[:2] != P.shape[:2] or not torch.isfinite(v).all():
+                raise AssertionError(f"[{label}] forward {f}: {k} has shape "
+                                     f"{tuple(v.shape)} or is not finite")
+    return out, seconds, launch_counts()
+
+
+def card_vs_cpu(label, make_model, state, P):
+    """The f32 forward on the card against the same weights on the CPU:
+    the kernels equal their plain versions, so the neighbourhoods are
+    the same and only matmul summation order differs; 1e-3, the serve
+    phase's bound."""
+    import torch
+
+    gpu_model = make_model(torch.float32).to(P.device)
+    gpu_model.load_state_dict(state)
+    cpu_model = make_model(torch.float32)
+    cpu_model.load_state_dict(state)
+    with torch.no_grad():
+        gpu = gpu_model(P)
+        ref = cpu_model(P.cpu())
+    worst = max((gpu[k].cpu() - ref[k]).abs().max().item() for k in ref)
+    log(f"[{label}] f32 forward card vs CPU (plain ops), B={P.shape[0]} "
+        f"N={P.shape[1]}: max abs diff {worst:.3g} over {len(ref)} outputs")
+    if not worst < 1e-3:
+        raise AssertionError(f"[{label}] forward on the card disagrees with "
+                             "the CPU")
+
+
 def large_cloud(dev):
     """Phase 5: the large-cloud forward; returns the path's counts."""
     import torch
@@ -482,8 +604,6 @@ def large_cloud(dev):
     from articulated_pose_tpu_torch.models.ancsh import ANCSHModel
     from articulated_pose_tpu_torch.models.layers import init_weights
     from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
-    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
-                                                        reset_launch_counts)
 
     spec = BackboneSpec(ball_query_impl="stream")
 
@@ -497,47 +617,146 @@ def large_cloud(dev):
     bf16.load_state_dict(state)
     P = torch.from_numpy(np.random.RandomState(4).rand(
         LARGE_B, LARGE_N, 3).astype(np.float32)).to(dev)
-    per_forward = expected_launches(fps2=1, ball_query_idx=2, three_nn=2)
-
-    reset_launch_counts()
-    seconds = []
-    for f in range(LARGE_FORWARDS):
-        before = launch_counts()
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            out = bf16(P)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        after = launch_counts()
-        rise = {k: after[k] - before[k] for k in after}
-        if rise != per_forward:
-            raise AssertionError(f"[large] forward {f}: kernel launches "
-                                 f"{rise}, expected {per_forward}")
-        for k, v in out.items():
-            if v.shape[:2] != (LARGE_B, LARGE_N) or not torch.isfinite(v).all():
-                raise AssertionError(f"[large] forward {f}: {k} has shape "
-                                     f"{tuple(v.shape)} or is not finite")
-    counts = launch_counts()
+    _, seconds, counts = forward_launches(
+        "large", bf16, P, expected_launches(fps2=1, ball_query_idx=2,
+                                            three_nn=2), LARGE_FORWARDS)
     log(f"[large] bf16 forward B={LARGE_B} N={LARGE_N}: "
         + ", ".join(f"{t * 1e3:.1f}" for t in seconds)
         + f" ms (host clock, synchronised); launches {counts}")
+    card_vs_cpu("large", model, state, P[:1])
+    return counts
 
-    # f32 on the card against the CPU, B=1: the same neighbourhoods on
-    # both (the kernels equal their plain versions), so only matmul
-    # summation order differs; 1e-3, the serve phase's bound
-    f32 = model(torch.float32).to(dev)
-    f32.load_state_dict(state)
-    cpu = model(torch.float32)
-    cpu.load_state_dict(state)
+
+# ---------------------------------------------------------------- phase 6
+def bucket_path(dev):
+    """Phase 6: bench.py's forward + pose fit with the bucket ball query;
+    returns the counts of the "bucket" and "bucket_xla" paths."""
+    import torch
+
+    from articulated_pose_tpu_torch.models.ancsh import ANCSHModel
+    from articulated_pose_tpu_torch.models.layers import init_weights
+    from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws,
+                                                          PoseFitConfig,
+                                                          fit_frame_batch)
+    from articulated_pose_tpu_torch.serving import POSE_KEYS
+
+    K, B = 3, BUCKET_BATCH
+
+    def make(impl):
+        def model(dtype):
+            return ANCSHModel(n_max_parts=K, dtype=dtype,
+                              backbone_spec=BackboneSpec(
+                                  ball_query_impl=impl)).eval()
+        return model
+
+    bucket = make("bucket")
+    state = init_weights(bucket(torch.float32),
+                         torch.Generator().manual_seed(5)).state_dict()
+    model = bucket(torch.bfloat16).to(dev)
+    model.load_state_dict(state)
+    clouds, _, _ = articulated_frames(np.random.RandomState(6),
+                                      BUCKET_BATCHES * B, N_POINTS, K)
+    clouds = torch.from_numpy(clouds).to(dev)
+    cfg = PoseFitConfig(n_parts=K, niter_part=128, niter_joint=64,
+                        joint_types=("revolute", "revolute"))
+    draws = PoseDraws.sample(B, cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    per_batch = expected_launches(fps2=1, ball_query_group_bucket=2,
+                                  three_nn=2)
+
+    reset_launch_counts()
+    latencies = []
+    for b in range(BUCKET_BATCHES):
+        P = clouds[b * B:(b + 1) * B]
+        before = launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pred = model(P)
+            fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS}, P, draws,
+                                   cfg)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        after = launch_counts()
+        rise = {k: after[k] - before[k] for k in after}
+        if rise != per_batch:
+            raise AssertionError(f"[bucket] batch {b}: kernel launches {rise}"
+                                 f", expected {per_batch}")
+        for k, shape in (("baseline_R", (B, K, 3, 3)), ("nonlinear_R",
+                                                         (B, K, 3, 3)),
+                         ("baseline_s", (B, K)), ("baseline_t", (B, K, 3))):
+            v = fits[k]
+            if tuple(v.shape) != shape or not torch.isfinite(v).all():
+                raise AssertionError(f"[bucket] batch {b}: {k} has shape "
+                                     f"{tuple(v.shape)} or is not finite")
+    counts = {"bucket bf16": launch_counts()}
+    for b, lat in enumerate(latencies):
+        log(f"[bucket] batch {b}: {B} clouds, forward + pose fit in "
+            f"{lat * 1e3:.1f} ms (host clock, synchronised)")
+    steady = latencies[1:]
+    log(f"[bucket] steady {B * len(steady) / sum(steady):.1f} clouds/s "
+        f"(batches 1..{BUCKET_BATCHES - 1}, bf16, N={N_POINTS}, K={K}, niter "
+        f"128/64); launches {counts['bucket bf16']}")
+
+    card_vs_cpu("bucket", bucket, state, clouds[:2])
+
+    # the exact tier on the same weights: another neighbour subset
+    exact = make("xla")(torch.bfloat16).to(dev)
+    exact.load_state_dict(state)
     with torch.no_grad():
-        gpu = f32(P[:1])
-        ref = cpu(P[:1].cpu())
-    worst = max((gpu[k].cpu() - ref[k]).abs().max().item() for k in ref)
-    log(f"[large] f32 forward card vs CPU (plain ops), B=1 N={LARGE_N}: max "
-        f"abs diff {worst:.3g} over {len(ref)} outputs")
-    if not worst < 1e-3:
-        raise AssertionError("large-cloud forward on the card disagrees "
-                             "with the CPU")
+        a, e = model(clouds[:B]), exact(clouds[:B])
+    diff = max((a[k] - e[k]).abs().max().item() for k in a)
+    log(f"[bucket] bf16 forward B={B}: max abs diff to the exact bf16 "
+        f"forward {diff:.3g} (another neighbour subset; no bound)")
+
+    # "bucket_xla": B8's indices, f32 offsets gathered after
+    xla = make("bucket_xla")(torch.bfloat16).to(dev)
+    xla.load_state_dict(state)
+    out, seconds, counts["bucket_xla bf16"] = forward_launches(
+        "bucket_xla", xla, clouds[:B], per_batch)
+    diff = max((out[k] - a[k]).abs().max().item() for k in out)
+    log(f"[bucket_xla] bf16 forward B={B}: {seconds[0] * 1e3:.1f} ms, max "
+        f"abs diff to the bucket forward {diff:.3g} (f32 against bf16 "
+        f"offsets); launches {counts['bucket_xla bf16']}")
+    return counts
+
+
+# ---------------------------------------------------------------- phase 7
+def nlevel_path(dev):
+    """Phase 7: the four-level pyramid at N=8192; returns its counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.models.ancsh import ANCSHModel
+    from articulated_pose_tpu_torch.models.layers import init_weights
+    from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
+
+    spec = BackboneSpec(**NLEVEL_SPEC)
+
+    def make(dtype):
+        return ANCSHModel(n_max_parts=3, dtype=dtype,
+                          backbone_spec=spec).eval()
+
+    state = init_weights(make(torch.float32),
+                         torch.Generator().manual_seed(7)).state_dict()
+    P = torch.from_numpy(np.random.RandomState(8).rand(
+        NLEVEL_B, NLEVEL_N, 3).astype(np.float32)).to(dev)
+    levels = len(spec.sa_npoints)
+    per_forward = expected_launches(fps=levels, ball_query_group=levels,
+                                    three_nn=levels)
+    counts = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = make(dtype).to(dev)
+        model.load_state_dict(state)
+        _, seconds, counts[f"N-level {name}"] = forward_launches(
+            f"N-level {name}", model, P, per_forward, NLEVEL_FORWARDS)
+        log(f"[N-level] {name} forward B={NLEVEL_B} N={NLEVEL_N}, "
+            f"{levels} SA levels: "
+            + ", ".join(f"{t * 1e3:.1f}" for t in seconds)
+            + f" ms (host clock, synchronised); launches "
+            f"{counts[f'N-level {name}']}")
+    card_vs_cpu("N-level", make, state, P[:1])
     return counts
 
 
@@ -581,6 +800,8 @@ def main() -> int:
     pose_oracle(dev)
     paths = serve(dev)
     paths["large"] = large_cloud(dev)
+    paths.update(bucket_path(dev))
+    paths.update(nlevel_path(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -11,7 +11,8 @@ need not have.)
 The kernels repeat the plain versions' arithmetic operation for
 operation with round-to-nearest intrinsics, so indices and counts must
 be equal, not just close.  Shapes are the serving path's at B=16 and
-the large-cloud path's (N=32768) at B=2-4.
+the large-cloud path's (N=32768) at B=2-4; single-level FPS also in
+each of its variants (N up to 100003).
 """
 
 import numpy as np
@@ -143,6 +144,58 @@ def test_three_nn_matches_plain(dev, N, M):
     assert torch.equal(d, dp)
 
 
+# single-level FPS (B2), in each of the three variants
+@pytest.mark.parametrize("N,variant", [(2048, "smem"), (20000, "smem_state"),
+                                       (100003, "global")])
+def test_fps_matches_plain(dev, N, variant):
+    xyz = _cloud(12, 2 if N > 2048 else 16, N, dev)
+    assert fps.fps_variant(N) == variant
+    before = KERNELS["fps"].launches
+    got = fps.fps(xyz, 512)
+    torch.cuda.synchronize()
+    assert KERNELS["fps"].launches == before + 1
+    want = fps.fps_plain(xyz, 512)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# the bucket tier (B8) at the serving shapes: SA1 2048 -> 512 (W = 32),
+# SA2 512 -> 128 (W = 8), and a cloud that pads (2000 -> 2048)
+@pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4),
+                                   (2000, 300, 0.3)])
+@pytest.mark.parametrize("emit_idx", [True, False])
+def test_ball_query_group_bucket_matches_plain(dev, N, M, r, emit_idx):
+    xyz = _cloud(13, 16, N, dev)
+    q = xyz[:, :M].clone()
+    q[:, :3] += 5.0                             # queries with no hit
+    before = KERNELS["ball_query_group_bucket"].launches
+    g, cnt, idx = ball_query.ball_query_group_bucket(r, 64, xyz, q, emit_idx)
+    torch.cuda.synchronize()
+    assert KERNELS["ball_query_group_bucket"].launches == before + 1
+    gp, cntp, idxp = ball_query.ball_query_group_bucket_plain(r, 64, xyz, q)
+    assert (cntp[:, :3] == 0).all() and (cntp[:, 3:] > 0).all()
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(g, gp)
+    if emit_idx:
+        assert torch.equal(idx, idxp)
+    else:
+        assert idx is None
+
+
+@pytest.mark.parametrize("N,S", [(100, 128), (77, 1), (1000, 8)])
+def test_ball_query_group_bucket_bucket_widths(dev, N, S):
+    # W = 1: every point its own slot, slots 100..127 past the cloud;
+    # W = 128 over 77 points: one slot; W = 128 over 1000 points: a
+    # bucket spans four warp steps, the last one ends at the cloud's end
+    xyz = _cloud(14, 2, N, dev)
+    q = _cloud(15, 2, 40, dev)
+    got = ball_query.ball_query_group_bucket(0.4, S, xyz, q)
+    torch.cuda.synchronize()
+    for g, w in zip(got, ball_query.ball_query_group_bucket_plain(0.4, S, xyz,
+                                                                  q)):
+        assert torch.equal(g, w)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     xyz = _cloud(5, 2, 64, dev)
     with pytest.raises(ValueError, match="float32"):
@@ -153,3 +206,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fps.fps2(xyz, 128, 4)
     with pytest.raises(ValueError, match="empty"):
         ball_query.ball_query_idx(0.1, 0, xyz, xyz)
+    with pytest.raises(ValueError, match="npoint <= N"):
+        fps.fps(xyz, 65)
+    with pytest.raises(ValueError, match="power-of-two bucket"):
+        ball_query.ball_query_group_bucket(0.1, 24, xyz, xyz)

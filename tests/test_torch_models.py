@@ -25,13 +25,15 @@ from articulated_pose_tpu_torch.models.ancsh import build_model
 N_POINTS = 256
 
 
-def flax_variables(cfg_kw, seed=0):
-    """Random variables of the tiny-preset Flax model, flattened to
-    "/"-joined keys: the tree comes from Flax (`eval_shape` of its init),
-    the values from numpy: Xavier-uniform kernels, random biases and
-    batch-norm scales/statistics."""
-    model = jax_build_model(JaxConfig(backbone_preset="tiny", **cfg_kw))
-    x = jax.ShapeDtypeStruct((1, N_POINTS, 3), jnp.float32)
+def flax_variables(cfg_kw, seed=0, model=None, channels=3):
+    """Random variables of the tiny-preset Flax model (or of `model`, on
+    clouds of `channels` channels), flattened to "/"-joined keys: the
+    tree comes from Flax (`eval_shape` of its init), the values from
+    numpy: Xavier-uniform kernels, random biases and batch-norm
+    scales/statistics."""
+    if model is None:
+        model = jax_build_model(JaxConfig(backbone_preset="tiny", **cfg_kw))
+    x = jax.ShapeDtypeStruct((1, N_POINTS, channels), jnp.float32)
     shapes = jax.eval_shape(lambda p: model.init(jax.random.PRNGKey(0), p,
                                                  train=False), x)
     rng = np.random.RandomState(seed)

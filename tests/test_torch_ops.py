@@ -190,9 +190,17 @@ class TestDispatch:
         d, j = three_nn.three_nn(xyz, x1)
         dp, jp = three_nn.three_nn_plain(xyz, x1)
         assert torch.equal(d, dp) and torch.equal(j, jp)
-        assert launch_counts() == {"fps2": 0, "ball_query_group": 0,
+        i, x = fps.fps(xyz, 32)
+        ip, xp = fps.fps_plain(xyz, 32)
+        assert torch.equal(i, ip) and torch.equal(x, xp)
+        g, c, i = ball_query.ball_query_group_bucket(0.3, 8, xyz, x1)
+        gp, cp, ip = ball_query.ball_query_group_bucket_plain(0.3, 8, xyz, x1)
+        assert torch.equal(g, gp) and torch.equal(c, cp) and torch.equal(i, ip)
+        assert launch_counts() == {"fps2": 0, "fps": 0, "ball_query_group": 0,
                                    "ball_query_group_packed": 0,
-                                   "ball_query_idx": 0, "three_nn": 0}
+                                   "ball_query_idx": 0,
+                                   "ball_query_group_bucket": 0,
+                                   "three_nn": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
@@ -206,3 +214,7 @@ class TestDispatch:
             ball_query.ball_query_idx(0.1, 4, xyz, xyz)
         with pytest.raises(ValueError, match="CUDA"):
             three_nn.three_nn(xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            fps.fps(xyz, 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            ball_query.ball_query_group_bucket(0.1, 4, xyz, xyz)

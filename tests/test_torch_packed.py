@@ -25,9 +25,9 @@ from articulated_pose_tpu.models.ancsh import ANCSHModel as JaxANCSHModel
 from articulated_pose_tpu.models.pointnet2 import BackboneSpec as JaxSpec
 from articulated_pose_tpu_torch.config import NetworkConfig, load_config
 from articulated_pose_tpu_torch.convert import state_dict_from_flax
-from articulated_pose_tpu_torch.models.ancsh import build_model
+from articulated_pose_tpu_torch.models.ancsh import ANCSHModel, build_model
 from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
-                                                         BackboneSpec)
+                                                         BackboneSpec, group)
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels import ball_query
 from test_torch_models import N_POINTS, flax_variables, unflatten
@@ -172,8 +172,8 @@ class TestPackedModel:
 def _grouping(model, xyz, q):
     """SA1's centred neighbourhood coordinates through a model's backbone."""
     spec = model.backbone.spec
-    g, _ = model.backbone.group(spec.sa_radii[0], spec.sa_nsamples[0], xyz,
-                                q, emit_idx=False)
+    g, _ = group(spec.sa_radii[0], spec.sa_nsamples[0], xyz, q, False,
+                 spec.ball_query_impl, spec.ball_query_packed)
     return g
 
 
@@ -219,8 +219,15 @@ class TestConfig:
 
     @pytest.mark.parametrize("impl", ["bucket", "bucket_xla"])
     def test_bucket_raises(self, impl):
-        with pytest.raises(NotImplementedError, match="B8"):
-            BackboneSpec(ball_query_impl=impl)
+        # the bucket tier needs ceil(N/128)·128 / nsample to be a power
+        # of two, on every device (ball_query_bucket.py:160-167): SA1 of
+        # a 256-point cloud with nsample 24 is refused
+        spec = BackboneSpec(ball_query_impl=impl,
+                            **dict(TINY_WIDTHS, sa_nsamples=(24, 16)))
+        model = ANCSHModel(backbone_spec=spec).eval()
+        xyz, _ = self._inputs()
+        with pytest.raises(ValueError, match="power-of-two bucket"):
+            model(xyz)
 
     def test_unknown_impl_raises(self):
         with pytest.raises(ValueError, match="unknown ball_query_impl"):

@@ -140,5 +140,9 @@ class TestConfigAndRegistry:
         ("head_compute_dtype", "float32"), ("pool_compute_dtype", "float32"),
         ("act_compute_dtype", "float32"), ("f32_stages", ("sa1",))])
     def test_unported_policy_knobs_raise(self, field, value):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            config.NetworkConfig(**{field: value})
+        # the mixed-precision knobs are ported: the value is taken, and
+        # only a value the JAX package would refuse raises
+        assert getattr(config.NetworkConfig(**{field: value}), field) == value
+        bad = ("sa9",) if field == "f32_stages" else "float16"
+        with pytest.raises(ValueError, match=field):
+            config.NetworkConfig(**{field: bad})
