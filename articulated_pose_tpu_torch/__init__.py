@@ -2,12 +2,14 @@
 
 The JAX package (`articulated_pose_tpu`) is the reference; every module
 here mirrors its counterpart there and is held against it by the
-`tests/test_torch_*.py` parity tests.  The point-cloud kernels of the
-serving and large-cloud paths (two-level FPS; the ball query in its
-exact, packed and index-only tiers; 3-NN) are hand-written CUDA C++
-under `csrc/`, built with nvcc at first use and bound with ctypes
-(`ops/kernels/`).  A CPU tensor takes each kernel's
-plain PyTorch version; a CUDA tensor takes the kernel.
+`tests/test_torch_*.py` parity tests.  The point-cloud kernels (two-
+and single-level FPS; the ball query in its exact, packed, index-only
+and bucket tiers; exact and packed-key 3-NN), one entry for each TPU
+kernel of the JAX package, are hand-written CUDA C++ under `csrc/`,
+built with nvcc at first use and bound with ctypes (`ops/kernels/`).
+A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
+takes the kernel.  `profile_stages` times the flagship forward, its
+kernels and the pose fit's sub-stages on the card.
 
 This package imports torch and numpy only: never jax, flax or the JAX
 package, so it runs on a GPU host that has none of them.

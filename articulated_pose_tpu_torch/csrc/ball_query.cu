@@ -15,6 +15,12 @@
 //    ball_query_stream.py::query_ball_point_stream (body _kernel): idx and
 //    cnt only, for clouds of any size the int32 index covers.
 //
+// The rank-select kernels of articulated_pose_tpu/ops/pallas/ball_query.py
+// compute the same functions: query_ball_point_pallas (_ballq_kernel) is
+// entry 3 and query_ball_point_grouped_pallas (_ballq_grouped_kernel) is
+// entry 1 with idx; the wrappers launch them under their own names.  The
+// TPU ranked hits with triangular matmuls because it has no ballot/popc.
+//
 // Shared semantics: for each query, the FIRST nsample points in index
 // order with d2 < r2 (strict), d2 in the expansion form
 // (|q|^2 + |p|^2) - 2 q.p with q.p = (qx px + qy py) + qz pz; slots past
@@ -81,13 +87,18 @@ __global__ void __launch_bounds__(kThreads)
 
   int cnt = 0;    // hits so far (warp-uniform)
   int first = 0;  // index of the first hit; point 0 when there is none
-  for (int base = 0; base < n && cnt < nsample; base += 32) {
-    const int k = base + lane;
+  // an unsigned counter, so that base + 32 cannot wrap for any int32 n;
+  // the point offsets are widened where they are formed (3 * k passes
+  // int32 above ~715M points)
+  const unsigned un = static_cast<unsigned>(n);
+  for (unsigned base = 0; base < un && cnt < nsample; base += 32) {
+    const unsigned k = base + lane;
+    const size_t k3 = 3 * static_cast<size_t>(k);
     bool hit = false;
-    if (k < n) {
-      const float px = __ldg(pts + 3 * k + 0);
-      const float py = __ldg(pts + 3 * k + 1);
-      const float pz = __ldg(pts + 3 * k + 2);
+    if (k < un) {
+      const float px = __ldg(pts + k3 + 0);
+      const float py = __ldg(pts + k3 + 1);
+      const float pz = __ldg(pts + k3 + 2);
       const float inner = __fadd_rn(
           __fadd_rn(__fmul_rn(qx, px), __fmul_rn(qy, py)), __fmul_rn(qz, pz));
       const float d2 = __fsub_rn(__fadd_rn(q2, sqnorm(px, py, pz)),
@@ -95,16 +106,18 @@ __global__ void __launch_bounds__(kThreads)
       hit = d2 < r2;
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (cnt == 0 && ballot != 0u) first = base + __ffs(ballot) - 1;
+    if (cnt == 0 && ballot != 0u) {
+      first = static_cast<int>(base) + __ffs(ballot) - 1;
+    }
     if (hit) {
       const int slot = cnt + __popc(ballot & ((1u << lane) - 1u));
       if (slot < nsample) {
         if (kGrouped) {
-          out[3 * slot + 0] = __fsub_rn(__ldg(src + 3 * k + 0), qx);
-          out[3 * slot + 1] = __fsub_rn(__ldg(src + 3 * k + 1), qy);
-          out[3 * slot + 2] = __fsub_rn(__ldg(src + 3 * k + 2), qz);
+          out[3 * slot + 0] = __fsub_rn(__ldg(src + k3 + 0), qx);
+          out[3 * slot + 1] = __fsub_rn(__ldg(src + k3 + 1), qy);
+          out[3 * slot + 2] = __fsub_rn(__ldg(src + k3 + 2), qz);
         }
-        if (idx) idx[slot] = k;
+        if (idx) idx[slot] = static_cast<int>(k);
       }
     }
     cnt += __popc(ballot);
@@ -113,9 +126,10 @@ __global__ void __launch_bounds__(kThreads)
 
   float fx = 0.0f, fy = 0.0f, fz = 0.0f;
   if (kGrouped) {
-    fx = __fsub_rn(__ldg(src + 3 * first + 0), qx);
-    fy = __fsub_rn(__ldg(src + 3 * first + 1), qy);
-    fz = __fsub_rn(__ldg(src + 3 * first + 2), qz);
+    const float* f = src + 3 * static_cast<size_t>(first);
+    fx = __fsub_rn(__ldg(f + 0), qx);
+    fy = __fsub_rn(__ldg(f + 1), qy);
+    fz = __fsub_rn(__ldg(f + 2), qz);
   }
   for (int s = cnt + lane; s < nsample; s += 32) {
     if (kGrouped) {

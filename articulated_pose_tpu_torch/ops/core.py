@@ -221,6 +221,40 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     return torch.cat(dists, -1), torch.cat(idxs, -1).to(torch.int32)
 
 
+# the packed 3-NN key keeps the candidate's index in its low 16 bits
+PACKED_MAX_CANDIDATES = 1 << 16
+_KEY_HIGH = -65536                 # 0xFFFF0000 as int32
+_KEY_SPARE = 2**31 - 1             # padded and taken lanes
+
+
+def three_nn_packed(xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """3-NN on an int32 sort key (three_nn.py:62-107, the packed tier).
+
+    key = (f32 bits of d² & 0xFFFF0000) | j for candidate j: the top 16
+    bits keep 7 mantissa bits of d² (d² >= 0, so its bits order as an
+    int32), and the index in the low bits makes the keys unique and ties
+    go to the lowest index.  Three min-and-mask sweeps take the three
+    smallest keys; idx = key & 0xFFFF and dist = the key's high half as
+    f32 (d² truncated, <= exact).  With fewer than 3 candidates a spare
+    slot holds the spare key 0x7FFFFFFF: idx 65535 and dist NaN (bits
+    0x7FFF0000), as the TPU kernel emits.  M <= 65536.
+    """
+    M = xyz2.shape[1]
+    if M > PACKED_MAX_CANDIDATES:
+        raise ValueError(f"three_nn_packed: M={M} exceeds the key's 16-bit "
+                         f"index (65536)")
+    d = pairwise_sqdist(xyz1, xyz2)                           # (B, N, M)
+    iota = torch.arange(M, dtype=torch.int32, device=d.device)
+    key = (d.view(torch.int32) & _KEY_HIGH) | iota
+    keys = []
+    for _ in range(3):
+        v = key.min(dim=-1, keepdim=True).values
+        keys.append(v)
+        key = torch.where(iota == (v & 0xFFFF), _KEY_SPARE, key)
+    keys = torch.cat(keys, -1)
+    return (keys & _KEY_HIGH).view(torch.float32), keys & 0xFFFF
+
+
 def three_interpolate(points: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """points (B, M, C), idx (B, N, 3), weight (B, N, 3) -> (B, N, C)."""

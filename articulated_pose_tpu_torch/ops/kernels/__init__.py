@@ -4,7 +4,11 @@ Importing this package builds nothing: a kernel is compiled (nvcc) and
 loaded the first time a CUDA tensor reaches its wrapper
 (`fps.fps2`, `fps.fps`, `ball_query.ball_query_group`,
 `ball_query.ball_query_group_packed`, `ball_query.ball_query_idx`,
-`ball_query.ball_query_group_bucket`, `three_nn.three_nn`).
+`ball_query.ball_query_point`, `ball_query.ball_query_point_grouped`,
+`ball_query.ball_query_group_bucket`, `three_nn.three_nn`,
+`three_nn.three_nn_stream`, `three_nn.three_nn_packed`).  Each entry
+replaces one TPU kernel and counts its own launches, also where two
+entries launch the same CUDA function.
 """
 
 from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
@@ -13,7 +17,11 @@ from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
 KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
                                 ball_query.KERNEL, ball_query.PACKED_KERNEL,
                                 ball_query.IDX_KERNEL,
-                                ball_query.BUCKET_KERNEL, three_nn.KERNEL)}
+                                ball_query.POINT_KERNEL,
+                                ball_query.POINT_GROUPED_KERNEL,
+                                ball_query.BUCKET_KERNEL, three_nn.KERNEL,
+                                three_nn.STREAM_KERNEL,
+                                three_nn.PACKED_KERNEL)}
 
 
 def reset_launch_counts() -> None:

@@ -1,4 +1,4 @@
-"""Ball query: four CUDA kernels over two sources, with their plain versions.
+"""Ball query: six kernel entries over two sources, with their plain versions.
 
 - `ball_query_group` (K2) replaces `articulated_pose_tpu/ops/pallas/
   ball_query_butterfly.py::query_ball_group_pallas` (exact transposed body
@@ -10,13 +10,19 @@
   are the cloud's 10-bit-quantised ones (`core.quantize_coords`).
 - `ball_query_idx` replaces `ball_query_stream.py::query_ball_point_stream`
   (the large-cloud tier): idx and cnt only; N < 2^24 as there.
+- `ball_query_point` (B5) replaces `ball_query.py::query_ball_point_pallas`
+  (rank-select body `_ballq_kernel`): idx and cnt of the exact query,
+  for any int32 N.  It launches the idx-only scan of `ball_query_idx`.
+- `ball_query_point_grouped` (B5g) replaces `ball_query.py::
+  query_ball_point_grouped_pallas` (`_ballq_grouped_kernel`): idx, cnt
+  and centred coordinates, in that order.  It launches K2 with idx.
 
 - `ball_query_group_bucket` (B8) replaces `ball_query_bucket.py::
   query_ball_group_bucket` (the "bucket" tier): slot j holds the first
   hit of the j-th of S equal buckets of the padded cloud, its offset
   rounded to bf16; cnt counts every hit.
 
-The first three run `csrc/ball_query.cu`: one warp per query scans the
+The first five run `csrc/ball_query.cu`: one warp per query scans the
 cloud in index order with ballot/popc slot ranks and stops at nsample
 hits.  B8 runs `csrc/ball_query_bucket.cu`: the same warp scan over the
 whole cloud, one first-set-bit per bucket.  The sources say what bounds
@@ -80,6 +86,12 @@ PACKED_KERNEL = CudaKernel(
 IDX_KERNEL = CudaKernel(
     "ball_query_idx", "ball_query.cu",
     "articulated_pose_tpu/ops/pallas/ball_query_stream.py:142", _bind_idx)
+POINT_KERNEL = CudaKernel(
+    "ball_query_point", "ball_query.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query.py:251", _bind_idx)
+POINT_GROUPED_KERNEL = CudaKernel(
+    "ball_query_point_grouped", "ball_query.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query.py:194", _bind_group)
 
 
 def _r2(radius: float) -> float:
@@ -110,15 +122,11 @@ def ball_query_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return grouped, cnt, (idx if emit_idx else None)
 
 
-def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
-                     new_xyz: torch.Tensor, emit_idx: bool = True):
-    """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (grouped_xyz (B, M, S, 3)
-    = point − query, cnt (B, M) i32 capped at S, idx (B, M, S) i32 or
-    None when not emit_idx)."""
-    if xyz.device.type == "cpu":
-        return ball_query_group_plain(radius, nsample, xyz, new_xyz, emit_idx)
-    B, N, M = _check("ball_query_group", xyz, new_xyz, nsample)
-    lib = KERNEL.lib()
+def _group(kernel: CudaKernel, radius: float, nsample: int,
+           xyz: torch.Tensor, new_xyz: torch.Tensor, emit_idx: bool):
+    """K2's launch (`ball_query_group_launch`), counted on `kernel`."""
+    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
+    lib = kernel.lib()
     dev = xyz.device
     grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
     cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
@@ -129,9 +137,38 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
             ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius),
             ptr(grouped), ptr(cnt), ptr(idx) if emit_idx else None,
             stream_of(xyz))
-    check_rc(KERNEL, rc, lib.ball_query_error_string)
-    KERNEL.launches += 1
+    check_rc(kernel, rc, lib.ball_query_error_string)
+    kernel.launches += 1
     return grouped, cnt, idx
+
+
+def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor, emit_idx: bool = True):
+    """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (grouped_xyz (B, M, S, 3)
+    = point − query, cnt (B, M) i32 capped at S, idx (B, M, S) i32 or
+    None when not emit_idx)."""
+    if xyz.device.type == "cpu":
+        return ball_query_group_plain(radius, nsample, xyz, new_xyz, emit_idx)
+    return _group(KERNEL, radius, nsample, xyz, new_xyz, emit_idx)
+
+
+def ball_query_point_grouped_plain(radius: float, nsample: int,
+                                   xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """`ball_query_group_plain` in JAX's output order (idx, cnt, grouped)."""
+    grouped, cnt, idx = ball_query_group_plain(radius, nsample, xyz, new_xyz)
+    return idx, cnt, grouped
+
+
+def ball_query_point_grouped(radius: float, nsample: int, xyz: torch.Tensor,
+                             new_xyz: torch.Tensor):
+    """B5g: xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
+    cnt (B, M) i32, grouped_xyz (B, M, S, 3) = point − query); a query
+    with no hit takes point 0 (ball_query.py:174-190)."""
+    if xyz.device.type == "cpu":
+        return ball_query_point_grouped_plain(radius, nsample, xyz, new_xyz)
+    grouped, cnt, idx = _group(POINT_GROUPED_KERNEL, radius, nsample, xyz,
+                               new_xyz, True)
+    return idx, cnt, grouped
 
 
 def ball_query_group_packed_plain(radius: float, nsample: int,
@@ -175,6 +212,23 @@ def ball_query_group_packed(radius: float, nsample: int, xyz: torch.Tensor,
 ball_query_idx_plain = core.query_ball_point
 
 
+def _idx(kernel: CudaKernel, radius: float, nsample: int,
+         xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The idx-only launch (`ball_query_idx_launch`), counted on `kernel`."""
+    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
+    lib = kernel.lib()
+    dev = xyz.device
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.ball_query_idx_launch(
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(cnt),
+            ptr(idx), stream_of(xyz))
+    check_rc(kernel, rc, lib.ball_query_error_string)
+    kernel.launches += 1
+    return idx, cnt
+
+
 def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
                    new_xyz: torch.Tensor):
     """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
@@ -186,18 +240,20 @@ def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
             f"range (2^24), as query_ball_point_stream does")
     if xyz.device.type == "cpu":
         return ball_query_idx_plain(radius, nsample, xyz, new_xyz)
-    B, N, M = _check("ball_query_idx", xyz, new_xyz, nsample)
-    lib = IDX_KERNEL.lib()
-    dev = xyz.device
-    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ball_query_idx_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(cnt),
-            ptr(idx), stream_of(xyz))
-    check_rc(IDX_KERNEL, rc, lib.ball_query_error_string)
-    IDX_KERNEL.launches += 1
-    return idx, cnt
+    return _idx(IDX_KERNEL, radius, nsample, xyz, new_xyz)
+
+
+ball_query_point_plain = core.query_ball_point
+
+
+def ball_query_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor):
+    """B5: xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
+    cnt (B, M) i32 capped at S): exactly `core.query_ball_point`
+    (ball_query.py:254), for any int32 N."""
+    if xyz.device.type == "cpu":
+        return ball_query_point_plain(radius, nsample, xyz, new_xyz)
+    return _idx(POINT_KERNEL, radius, nsample, xyz, new_xyz)
 
 
 def _bind_bucket(lib: ctypes.CDLL) -> None:

@@ -3,7 +3,8 @@
 
 Per frame, batched over frames (B) and parts (K):
 1. argmax segmentation -> valid-first per-part buffers (one sort of a
-   composite key, then gathers by the sort permutation),
+   composite key, then one gather of the points and NOCS along each
+   part's rows),
 2. per-part RANSAC similarity fits ("baseline"),
 3. per-joint median vote of the predicted joint axis over the points the
    joint head associates with that joint,
@@ -50,15 +51,21 @@ class PoseFitConfig:
     # only the production choices are ported; the others raise
     hypo_estimator: str = "alternating"
     batch_joints: bool = False
+    # the reference's two part-buffer builds ("sort", "gather") give the
+    # same masked buffers; the port has one (build_part_buffers_sorted),
+    # so either name is taken and selects nothing
     buffer_build: str = "sort"
     axis_agg: str = "median"
 
     def __post_init__(self):
-        if (self.hypo_estimator, self.batch_joints, self.buffer_build,
-                self.axis_agg) != ("alternating", False, "sort", "median"):
+        if (self.hypo_estimator, self.batch_joints, self.axis_agg) != (
+                "alternating", False, "median"):
             raise NotImplementedError(
-                "only hypo_estimator='alternating', batch_joints=False, "
-                "buffer_build='sort' and axis_agg='median' are ported")
+                "only hypo_estimator='alternating', batch_joints=False and "
+                "axis_agg='median' are ported")
+        if self.buffer_build not in ("sort", "gather"):
+            raise ValueError(f"buffer_build must be 'sort' or 'gather', got "
+                             f"{self.buffer_build!r}")
 
 
 @dataclasses.dataclass
@@ -85,33 +92,61 @@ class PoseDraws:
                              generator=generator, device=device))
 
 
+# the composite sort key (cls << ceil_log2(N)) | index must stay below this
+KEY_LIMIT = 2**31
+
+
+def partition_by_class(cls: torch.Tensor, n_parts: int,
+                       cap: Optional[int] = None):
+    """Valid-first per-part index rows (pipeline.py:109-157).
+
+    cls (B, N) int -> (order (B, K, cap) int32, cnt (B, K) int32); cap
+    defaults to N.  Labels are clamped into [0, n_parts).  Row j's first
+    min(cnt[j], cap) entries are part j's member indices in ascending
+    order; later entries are arbitrary in-range indices (callers mask on
+    cnt).  One sort of the composite key (cls << ceil_log2(N)) | index
+    groups every part at once, and masking the key back out is the
+    stable argsort; where that key would overflow int32 a stable argsort
+    of the labels gives the same permutation.
+    """
+    B, N = cls.shape
+    if cap is None or cap > N:
+        cap = N
+    cls = cls.clamp(0, n_parts - 1).to(torch.int32)
+    shift = max(1, (N - 1).bit_length())
+    if (n_parts << shift) < KEY_LIMIT:
+        iota = torch.arange(N, dtype=torch.int32, device=cls.device)
+        skey = torch.sort((cls << shift) | iota, dim=-1).values
+        order = skey & ((1 << shift) - 1)
+    else:
+        order = torch.argsort(cls, dim=-1, stable=True).to(torch.int32)
+    part_ids = torch.arange(n_parts, dtype=torch.int32, device=cls.device)
+    cnts = (cls.unsqueeze(1) == part_ids[:, None]).sum(-1, dtype=torch.int32)
+    starts = torch.cumsum(cnts, dim=-1) - cnts                     # (B, K)
+    # pad so that start + cap never runs past the row
+    order = torch.cat([order, order.new_zeros(B, cap)], dim=1)
+    rows = starts.unsqueeze(-1).long() + torch.arange(cap, device=cls.device)
+    return order.gather(1, rows.reshape(B, -1)).reshape(B, n_parts, cap), cnts
+
+
 def build_part_buffers_sorted(nocs: torch.Tensor, P: torch.Tensor,
                               cls: torch.Tensor, n_parts: int, cap: int):
     """Valid-first part buffers (pipeline.py:160-205).
 
     nocs (B, N, 3K), P (B, N, 3), cls (B, N) -> (src (B, K, cap, 3),
-    tgt (B, K, cap, 3), mask (B, K, cap), cnts (B, K) int32).  The
-    composite key (cls << ceil_log2(N)) | index is sorted once; its low
-    bits are the permutation that puts every part's points in index
-    order, and part j's buffer starts at the exclusive count prefix.
+    tgt (B, K, cap, 3), mask (B, K, cap), cnts (B, K) int32).  Part j's
+    rows come from `partition_by_class`, and one gather takes P and the
+    K NOCS planes along them.  After masking these are the buffers of
+    both of the reference's builds ("sort" and "gather",
+    pipeline.py:344-355); where the composite key would overflow int32,
+    partition_by_class's argsort branch takes over, so no N is refused.
     """
-    B, N = cls.shape
+    B = cls.shape[0]
     K = n_parts
-    cls = cls.clamp(0, K - 1).to(torch.int32)
-    shift = max(1, (N - 1).bit_length())
-    if (K << shift) >= 2**31:
-        raise ValueError(f"composite key overflows i32 (n_parts={K}, N={N})")
-    iota = torch.arange(N, dtype=torch.int32, device=cls.device)
-    skey = torch.sort((cls << shift) | iota, dim=-1).values
-    perm = (skey & ((1 << shift) - 1)).long()                      # (B, N)
-    payload = torch.cat([P, nocs], dim=-1).gather(
-        1, perm.unsqueeze(-1).expand(B, N, 3 + 3 * K))
-    payload = torch.cat([payload, payload.new_zeros(B, cap, 3 + 3 * K)], 1)
-    part_ids = torch.arange(K, dtype=torch.int32, device=cls.device)
-    cnts = (cls.unsqueeze(1) == part_ids[:, None]).sum(-1, dtype=torch.int32)
-    starts = torch.cumsum(cnts, dim=-1) - cnts                     # (B, K)
-    rows = starts.unsqueeze(-1).long() + torch.arange(cap, device=cls.device)
-    bufs = payload.gather(1, rows.reshape(B, K * cap, 1).expand(
+    rows, cnts = partition_by_class(cls, K, cap)                   # (B, K, cap)
+    cap = rows.shape[-1]
+    payload = torch.cat([P, nocs], dim=-1)                         # (B, N, 3+3K)
+    bufs = payload.gather(1, rows.long().reshape(B, K * cap, 1).expand(
         B, K * cap, 3 + 3 * K)).reshape(B, K, cap, 3 + 3 * K)
     mask = (torch.arange(cap, device=cls.device) < cnts.unsqueeze(-1)
             ).to(P.dtype)
@@ -150,12 +185,14 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx).squeeze(1)
 
 
-def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
-                  cfg: PoseFitConfig, prismatic: bool):
-    """Joint-constrained RANSAC for one (base, moving-part) pair, batched
-    over frames (pipeline.py:256-320): alternating-Kabsch hypotheses,
-    the full joint LM on the best one's inliers.  u0/u1 (B, H, 3)
-    uniforms; buffers (B, P, 3), masks (B, P), jt_axis (B, 3)."""
+def joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
+                     cfg: PoseFitConfig, prismatic: bool):
+    """The hypothesis half of the joint RANSAC for one (base, moving-part)
+    pair, batched over frames (pipeline.py:266-301): alternating-Kabsch
+    fits of the drawn minimal samples and their mean inlier ratio over
+    both parts' score prefix.  u0/u1 (B, H, 3) uniforms; buffers
+    (B, P, 3), masks (B, P), jt_axis (B, 3) -> (JointFit of (B, H, ...),
+    scores (B, H))."""
     B, H = u0.shape[:2]
     i0 = masked_sample_indices(u0, m0)
     i1 = masked_sample_indices(u1, m1)
@@ -174,7 +211,17 @@ def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
                                   tgt1[:, :sp], m1[:, :sp] > 0, cfg.inlier_th)
     frac0 = c0 / torch.clamp_min(m0[:, :sp].sum(-1, keepdim=True), 1.0)
     frac1 = c1 / torch.clamp_min(m1[:, :sp].sum(-1, keepdim=True), 1.0)
-    best = ((frac0 + frac1) / 2.0).argmax(dim=-1)                  # (B,)
+    return fits, (frac0 + frac1) / 2.0
+
+
+def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
+                  cfg: PoseFitConfig, prismatic: bool):
+    """Joint-constrained RANSAC for one (base, moving-part) pair, batched
+    over frames (pipeline.py:256-320): `joint_hypotheses`, then the full
+    joint LM on the best one's inliers."""
+    fits, scores = joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1,
+                                    jt_axis, cfg, prismatic)
+    best = scores.argmax(dim=-1)                                   # (B,)
 
     def inliers(R, s, t, src, tgt, m):
         res = umeyama.similarity_residual(_take(R, best), _take(s, best),
@@ -186,7 +233,7 @@ def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
     w0 = inliers(fits.R0, fits.s0, fits.t0, src0, tgt0, m0)
     w1 = inliers(fits.R1, fits.s1, fits.t1, src1, tgt1, m1)
     cap = cfg.lm_refit_points
-    if cap is not None and cap < P:
+    if cap is not None and cap < src0.shape[1]:
         src0, tgt0, w0 = src0[:, :cap], tgt0[:, :cap], w0[:, :cap]
         src1, tgt1, w1 = src1[:, :cap], tgt1[:, :cap], w1[:, :cap]
     return joint_transformation_estimate(

@@ -40,27 +40,34 @@ class PoseResult:
 class PosePredictor:
     """ANCSH forward + pose fit on one device.
 
-    >>> pred = PosePredictor(cfg, ckpt_path="model.pt", device="cuda")
+    >>> pred = PosePredictor(cfg, ckpt_path="model.pt")   # on the card
     >>> out = pred(clouds)          # (B, N, 3) float32
     >>> out.R[b, j], out.scale[b, j], out.t[b, j]
 
     Weights come from `state_dict` or from `ckpt_path`, a `torch.save`d
     state dict (`convert.load_flax_npz` turns a JAX checkpoint into one).
+    It serves on the card unless `device` names another one; without a
+    card the default raises rather than serving on the CPU.
     """
 
     def __init__(self, config: NetworkConfig,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  ckpt_path: Optional[str] = None,
                  pose_cfg: Optional[PoseFitConfig] = None,
-                 use_nonlinear: bool = True, device="cpu"):
+                 use_nonlinear: bool = True, device="cuda"):
         if (state_dict is None) == (ckpt_path is None):
             raise ValueError("PosePredictor needs exactly one of state_dict "
                              "and ckpt_path")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"PosePredictor: device {device} is not "
+                               "available; pass device='cpu' to serve on "
+                               "the CPU")
         if ckpt_path is not None:
             state_dict = torch.load(ckpt_path, map_location="cpu",
                                     weights_only=True)
         self.config = config
-        self.device = torch.device(device)
+        self.device = device
         self.model = build_model(config, device=self.device)
         self.model.load_state_dict(state_dict)
         spec = config.category_spec

@@ -1,0 +1,117 @@
+"""Device timing on the card: spin-queued CUDA events, the profiler's
+device time and op count, and the roofline bound of a kernel's work.
+
+Every function here needs a CUDA device; none falls back to the host.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+import warnings
+from typing import Callable, Optional, Tuple
+
+import torch
+
+MAX_SPIN_CYCLES = 1 << 28           # ~0.15-0.25 s of spin at H100 clocks
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3 bandwidth
+F32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def cuda_time_ms(fn: Callable[[], object], reps: int = 20):
+    """Time of one call of fn: (median ms over `reps` calls, each timed
+    with CUDA events; True when that is device time only).
+
+    Each call is queued behind a spin kernel, so the card opens the
+    interval only after the host has enqueued all of fn: the host's
+    launch cost (ctypes, allocation, Python) stays out of the reading.
+    The spin doubles until the start event is still pending once fn is
+    enqueued, i.e. until the host really stayed ahead.  A function of
+    thousands of launches fills the card's launch queue, so the host
+    waits on the card and cannot stay ahead whatever the spin: its
+    calls are then timed without the spin, and the reading includes
+    the host's launch time (second value False).
+    """
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    cycles = 1 << 20
+    device_only = True
+    for _ in range(reps):
+        while True:
+            if device_only:
+                torch.cuda._sleep(cycles)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            host_ahead = not start.query()
+            end.synchronize()
+            if host_ahead or not device_only:
+                break
+            if cycles < MAX_SPIN_CYCLES:
+                cycles *= 2
+            else:
+                device_only = False
+                times.clear()       # one kind of reading in the median
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), device_only
+
+
+def timing_note(device_only: bool) -> str:
+    return "" if device_only else " (host-bound: includes launch time)"
+
+
+def wall_ms(fn: Callable[[], object], iters: int) -> float:
+    """Host-clock ms per call over `iters` calls, ending in a
+    synchronise (fn is called once before, as a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
+    """(device-busy ms, device ops) per call of fn, from torch.profiler
+    over `iters` calls: the summed durations and the count of the
+    events it records on the card (kernels, copies, memsets).  Raises if
+    it records none, so a trace that misses the card reads as a fault."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        # one profiling window: the warning about clearing events at the
+        # end of each scheduled cycle does not apply
+        warnings.filterwarnings("ignore", "Warning: Profiler clears events")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    busy_us = sum(e.time_range.elapsed_us() for e in ops)
+    return busy_us / 1e3 / iters, len(ops) // iters
+
+
+def roofline_ms(flops: float, nbytes: float) -> Tuple[float, float]:
+    """(ms for `flops` float32 operations, ms for moving `nbytes` bytes)
+    at the published peaks above; the larger is the least time the card
+    could take for the work."""
+    return flops / F32_PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def require_card(device: Optional[str] = None) -> torch.device:
+    """The CUDA device to measure on; raises when there is none."""
+    dev = torch.device(device or "cuda")
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} is not an available CUDA device")
+    return dev

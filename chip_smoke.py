@@ -9,14 +9,23 @@ is non-zero):
 0. Require a CUDA device; print the card (nvidia-smi name and power
    limit) and the torch / CUDA / nvcc versions.
 1. Build the CUDA sources from csrc/, one nvcc each, all at once.
-2. Hold each of the seven kernels against its plain PyTorch version at
+2. Hold each of the eleven kernels against its plain PyTorch version at
    the shapes its paths give it: the serving path's (B=16, N=2048), the
-   large-cloud path's (B=4, N=32768) and the N-level path's (B=8,
-   N=8192 -> 1024 -> 256 -> 64 -> 16): exact indices and counts;
-   coordinates within 1e-6 absolute (equal for the packed and bucket
-   tiers, whose queries include some moved out of the cloud); 3-NN
-   distances within 1e-6 relative.  Device time of each, median of 20
-   CUDA-event-timed calls (`cuda_time_ms`).
+   large-cloud path's (B=4, N=32768), the N-level path's (B=8,
+   N=8192 -> 1024 -> 256 -> 64 -> 16), the stage profiler's (B=64,
+   N=2048 -> 512 -> 128) and the kernel entries' (B5g at B=64; B7 at
+   (4, 2048 <- 16384) and (4, 2048 <- 3000); B9 at (64, 2048 <- 512)):
+   exact indices and counts; coordinates within 1e-6 absolute (equal for
+   the packed, bucket and B5g tiers, whose queries include some moved
+   out of the cloud); 3-NN distances within 1e-6 relative (B7 equal;
+   B9's within one key quantum, with the entries that differ counted).
+   B9 is also read against K3 as scripts/ab_threenn_packed.py reads the
+   TPU kernels, with the bounds of tests/test_pallas_tpu.py.  Device
+   time of each, median of 20 CUDA-event-timed calls (`timing.
+   cuda_time_ms`; of 5 for the plain versions, which are no yardstick
+   and, for FPS, take tens of ms of host time a call); its bound from
+   this run's inputs (`bound` below); for the 3-NN kernels the time of
+   torch.topk(torch.cdist(...), 3) as the nearest library call.
 3. Pose oracle: 8 frames of a 3-part object with two revolute joints and
    perfect predictions; the pose fit on the card must recover every
    part's similarity (rotation < 3 deg, scale within 5 %, translation
@@ -42,10 +51,16 @@ is non-zero):
    segmentation network under the ANCSH heads, B=8, N=8192, bf16 and
    f32 (4 single-level FPS, 4 exact ball query, 4 3-NN per forward);
    the f32 forward on the card against the CPU at B=1.
+8. Stage profiler: `profile_stages.run` at B=64, N=2048 over all 14
+   stages, a few iterations each; every stage must show device time and
+   device ops, and B2 (`fps1`, `fps2`) and B5 (`bq1`, `bq2`) must launch.
+9. Kernel entries: B5g, B7 and B9 called once each at phase 2's shapes,
+   as the JAX package's tests and A/B scripts call the TPU kernels; each
+   output is held against the plain version's, by phase 2's rules.
 
-Each path of phases 4-7 runs with the launch counts set to 0 just
-before it and read just after, and fails unless each of its kernels
-launched.  The last lines are the card's name and power limit as
+Each phase logs its host-clock seconds ("[time]").  Each path of
+phases 4-9 runs with the launch counts set to 0 just before it and read
+just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -53,9 +68,9 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
-import statistics
 import subprocess
 import sys
 import time
@@ -64,7 +79,6 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 B_KERNEL = 16
-MAX_SPIN_CYCLES = 1 << 28           # ~0.15-0.25 s of spin at H100 clocks
 N_POINTS = 2048
 SERVE_BATCH = 16
 SERVE_REQUESTS = 3
@@ -87,6 +101,28 @@ NLEVEL_SPEC = dict(
 NLEVEL_B = 8
 NLEVEL_N = 8192
 NLEVEL_FORWARDS = 3
+PROFILE_B = 64                      # scripts/profile_stages.py's defaults
+PROFILE_ITERS = 3
+PLAIN_REPS = 5
+STREAM_SHAPES = ((4, 2048, 16384), (4, 2048, 3000))   # B7: B, N, M
+# FLOPs the work needs, for the bounds: a (query, point) distance is the
+# inner product (3 mul, 2 add), |q|^2 + |p|^2, 2 q.p and the difference,
+# plus the radius test or the clamp; |p|^2 or |q|^2 is 5 once per point;
+# 3-NN adds one compare against its third-best; an FPS step costs 3 sub,
+# 3 mul, 2 add, the running min and the argmax compare per point; the
+# packed tier's quantiser ~30 per point (box, scale, floor, clamp, fma)
+PAIR_FLOPS = 9
+NORM_FLOPS = 5
+NN_PAIR_FLOPS = 10
+FPS_FLOPS = 10
+QUANT_FLOPS = 30
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def log(msg: str) -> None:
@@ -100,70 +136,66 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 20):
-    """Time of one call of fn: (median ms over `reps` calls, each timed
-    with CUDA events; True when that is device time only).
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
-    Each call is queued behind a spin kernel, so the card opens the
-    interval only after the host has enqueued all of fn: the host's
-    launch cost (ctypes, allocation, Python) stays out of the reading.
-    The spin doubles until the start event is still pending once fn is
-    enqueued, i.e. until the host really stayed ahead.  A function of
-    thousands of launches fills the card's launch queue, so the host
-    waits on the card and cannot stay ahead whatever the spin: its
-    calls are then timed without the spin, and the reading includes
-    the host's launch time (second value False).
-    """
+
+def bound(flops: float, *tensors):
+    """(ms for `flops`, ms for the bytes) of one call at the card's
+    published peaks; `tensors` are the call's inputs and outputs, each
+    read or written once."""
+    from articulated_pose_tpu_torch.timing import roofline_ms
+
+    return roofline_ms(flops, nbytes(*tensors))
+
+
+def scanned_points(idx, cnt, N: int) -> int:
+    """Points a first-S ball query has to examine for these inputs: each
+    query's cloud up to its S-th hit, all of it when it has fewer."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    cycles = 1 << 20
-    device_only = True
-    for _ in range(reps):
-        while True:
-            if device_only:
-                torch.cuda._sleep(cycles)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            host_ahead = not start.query()
-            end.synchronize()
-            if host_ahead or not device_only:
-                break
-            if cycles < MAX_SPIN_CYCLES:
-                cycles *= 2
-            else:
-                device_only = False
-                times.clear()       # one kind of reading in the median
-        times.append(start.elapsed_time(end))
-    return statistics.median(times), device_only
-
-
-def timing_note(device_only: bool) -> str:
-    return "" if device_only else " (host-bound: includes launch time)"
+    S = idx.shape[-1]
+    return int(torch.where(cnt >= S, idx[..., -1].long() + 1, N).sum())
 
 
 # ---------------------------------------------------------------- phase 2
-def time_both(kernel_fn, plain_fn):
-    """Times of a kernel and of its plain version on the same inputs:
-    (ms, plain_ms, ms device only?, plain_ms device only?, note)."""
+def time_both(kernel_fn, plain_fn, library_fn=None):
+    """Times of a kernel, of its plain version and, where given, of the
+    library call on the same inputs: (ms, plain_ms, ms device only?,
+    plain_ms device only?, note, library_ms or None)."""
+    from articulated_pose_tpu_torch.timing import cuda_time_ms, timing_note
+
     ms, k_dev = cuda_time_ms(kernel_fn)
-    plain_ms, p_dev = cuda_time_ms(plain_fn)
+    plain_ms, p_dev = cuda_time_ms(plain_fn, reps=PLAIN_REPS)
     note = (f"kernel {ms:.4f} ms{timing_note(k_dev)}, plain {plain_ms:.4f} "
             f"ms{timing_note(p_dev)}")
-    return ms, plain_ms, k_dev, p_dev, note
+    library_ms = None
+    if library_fn is not None:
+        library_ms, l_dev = cuda_time_ms(library_fn)
+        note += f", library {library_ms:.4f} ms{timing_note(l_dev)}"
+    return ms, plain_ms, k_dev, p_dev, note, library_ms
 
 
-def kernel_result(err, times, shapes):
-    """The JSON entry of one kernel; times summed over its shapes."""
-    return dict(max_abs_err=err, ms=sum(t[0] for t in times),
+def kernel_result(err, times, shapes, bounds):
+    """The JSON entry of one kernel: times and bounds summed over its
+    shapes; `bounds` holds each shape's (operations ms, bytes ms), and
+    `bound_by` names the larger of the two sums."""
+    t_ops = sum(b[0] for b in bounds)
+    t_bytes = sum(b[1] for b in bounds)
+    ms = sum(t[0] for t in times)
+    libs = [t[5] for t in times]
+    return dict(max_abs_err=err, ms=ms,
                 plain_ms=sum(t[1] for t in times),
+                bound_ms=sum(max(b) for b in bounds),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None if None in libs else sum(libs),
                 ms_device_only=all(t[2] for t in times),
                 plain_ms_device_only=all(t[3] for t in times), shapes=shapes)
+
+
+def bound_note(b) -> str:
+    return (f"bound {max(b):.4f} ms "
+            f"({'operations' if b[0] >= b[1] else 'bytes'})")
 
 
 def check_equal(name: str, got, want) -> float:
@@ -184,7 +216,7 @@ def compare_fps(clouds):
     calls it.  Returns the JSON entry and each cloud's (xyz1, xyz2)."""
     from articulated_pose_tpu_torch.ops.kernels import fps
 
-    err, times, shapes, picks = 0.0, [], [], {}
+    err, times, shapes, bounds, picks = 0.0, [], [], [], {}
     for label, cloud in clouds:
         B, N, _ = cloud.shape
         got = fps.fps2(cloud, 512, 128)
@@ -192,40 +224,48 @@ def compare_fps(clouds):
                                    fps.fps2_plain(cloud, 512, 128)))
         t = time_both(lambda: fps.fps2(cloud, 512, 128),
                       lambda: fps.fps2_plain(cloud, 512, 128))
+        bounds.append(bound(B * (511 * N + 127 * 512) * FPS_FLOPS, cloud,
+                            *got))
         shape = f"B{B} N{N}->512->128 ({fps.fps2_variant(N, 512)})"
-        log(f"[kernels] fps2 {shape}: indices and coordinates equal; {t[4]}")
+        log(f"[kernels] fps2 {shape}: indices and coordinates equal; {t[4]}; "
+            f"{bound_note(bounds[-1])}")
         times.append(t)
         shapes.append(shape)
         picks[label] = (got[1], got[3])
-    return kernel_result(err, times, shapes), picks
+    return kernel_result(err, times, shapes, bounds), picks
 
 
 def compare_fps_single(cases):
     """B2 at each (cloud, npoint) of its paths.  Returns the JSON entry."""
     from articulated_pose_tpu_torch.ops.kernels import fps
 
-    err, times, shapes = 0.0, [], []
+    err, times, shapes, bounds = 0.0, [], [], []
     for cloud, npoint in cases:
         B, N, _ = cloud.shape
-        err = max(err, check_equal("fps", fps.fps(cloud, npoint),
-                                   fps.fps_plain(cloud, npoint)))
+        got = fps.fps(cloud, npoint)
+        err = max(err, check_equal("fps", got, fps.fps_plain(cloud, npoint)))
         t = time_both(lambda: fps.fps(cloud, npoint),
                       lambda: fps.fps_plain(cloud, npoint))
+        bounds.append(bound(B * (npoint - 1) * N * FPS_FLOPS, cloud, *got))
         shape = f"B{B} N{N}->{npoint} ({fps.fps_variant(N)})"
-        log(f"[kernels] fps {shape}: indices and coordinates equal; {t[4]}")
+        log(f"[kernels] fps {shape}: indices and coordinates equal; {t[4]}; "
+            f"{bound_note(bounds[-1])}")
         times.append(t)
         shapes.append(shape)
-    return kernel_result(err, times, shapes)
+    return kernel_result(err, times, shapes, bounds)
 
 
-def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound):
-    """A grouped ball query (exact or packed) at each (points, queries,
-    radius, emit_idx) of its path, S=64: cnt and idx equal, coordinates
-    within coord_bound.  The emit_idx=False launch must give the same
-    coordinates and counts."""
+def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
+                     whole_cloud=False, point_flops=NORM_FLOPS):
+    """A grouped ball query at each (points, queries, radius, emit_idx)
+    of its path, S=64: cnt and idx equal, coordinates within
+    coord_bound.  The emit_idx=False launch must give the same
+    coordinates and counts.  The bound counts the points each query has
+    to examine: up to its 64th hit, or the whole cloud (`whole_cloud`,
+    the bucket tier); `point_flops` per point of the cloud."""
     import torch
 
-    err, times, shapes = 0.0, [], []
+    err, times, shapes, bounds = 0.0, [], [], []
     for pts, q, r, emit in cases:
         g, cnt, idx = kernel_fn(r, 64, pts, q, emit_idx=True)
         gp, cntp, idxp = plain_fn(r, 64, pts, q)
@@ -238,16 +278,141 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound):
         err = max(err, e)
         t = time_both(lambda: kernel_fn(r, 64, pts, q, emit_idx=emit),
                       lambda: plain_fn(r, 64, pts, q, emit_idx=emit))
-        shape = (f"B{pts.shape[0]} N{pts.shape[1]} M{q.shape[1]} S64 r{r} "
-                 f"emit_idx={emit}")
+        B, N = pts.shape[:2]
+        M = q.shape[1]
+        pairs = B * M * N if whole_cloud else scanned_points(idxp, cntp, N)
+        bounds.append(bound(pairs * PAIR_FLOPS + B * N * point_flops
+                            + B * M * NORM_FLOPS, pts, q, g, cnt,
+                            idx if emit else None))
+        shape = f"B{B} N{N} M{M} S64 r{r} emit_idx={emit}"
         log(f"[kernels] {name} {shape}: cnt, idx equal, grouped max abs "
-            f"err {e:.3g}; {t[4]} (mean cnt {cnt.float().mean().item():.2f})")
+            f"err {e:.3g}; {t[4]}; {bound_note(bounds[-1])} (mean cnt "
+            f"{cnt.float().mean().item():.2f}, {pairs / (B * M):.1f} points "
+            f"examined per query)")
         times.append(t)
         shapes.append(shape)
-    return kernel_result(err, times, shapes)
+    return kernel_result(err, times, shapes, bounds)
+
+
+def compare_idx(name, kernel_fn, plain_fn, cases):
+    """An idx-only first-S ball query at each (points, queries, radius),
+    S=64: idx and cnt equal."""
+    err, times, shapes, bounds = 0.0, [], [], []
+    for pts, q, r in cases:
+        idx, cnt = kernel_fn(r, 64, pts, q)
+        idxp, cntp = plain_fn(r, 64, pts, q)
+        check_equal(f"{name} r={r}", (idx, cnt), (idxp, cntp))
+        t = time_both(lambda: kernel_fn(r, 64, pts, q),
+                      lambda: plain_fn(r, 64, pts, q))
+        B, N = pts.shape[:2]
+        M = q.shape[1]
+        pairs = scanned_points(idxp, cntp, N)
+        bounds.append(bound(pairs * PAIR_FLOPS + (B * N + B * M) * NORM_FLOPS,
+                            pts, q, idx, cnt))
+        shape = f"B{B} N{N} M{M} S64 r{r}"
+        log(f"[kernels] {name} {shape}: idx, cnt equal; {t[4]}; "
+            f"{bound_note(bounds[-1])} (mean cnt "
+            f"{cnt.float().mean().item():.2f}, {pairs / (B * M):.1f} points "
+            f"examined per query)")
+        times.append(t)
+        shapes.append(shape)
+    return kernel_result(err, times, shapes, bounds)
+
+
+def nn_library(a, b):
+    """The nearest PyTorch call to a 3-NN search: two calls (cdist, then
+    topk), and plain distances rather than squared ones."""
+    import torch
+
+    return torch.topk(torch.cdist(a, b), 3, dim=-1, largest=False)
+
+
+def nn_bound(a, b, *outputs):
+    B, N, _ = a.shape
+    M = b.shape[1]
+    return bound(B * N * M * NN_PAIR_FLOPS + B * (N + M) * NORM_FLOPS, a, b,
+                 *outputs)
+
+
+def compare_nn(name, kernel_fn, plain_fn, cases, rel_bound):
+    """An exact 3-NN kernel at each (xyz1, xyz2): idx equal, distances
+    within rel_bound relative (0: equal)."""
+    err, times, shapes, bounds = 0.0, [], [], []
+    for a, b in cases:
+        d, i = kernel_fn(a, b)
+        dp, ip = plain_fn(a, b)
+        check_equal(f"{name} indices", (i,), (ip,))
+        rel = ((d - dp).abs() / dp.abs().clamp_min(1e-30)).max().item()
+        if rel > rel_bound:
+            raise AssertionError(f"{name} distances off by {rel} relative")
+        err = max(err, (d - dp).abs().max().item())
+        t = time_both(lambda: kernel_fn(a, b), lambda: plain_fn(a, b),
+                      lambda: nn_library(a, b))
+        bounds.append(nn_bound(a, b, d, i))
+        shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
+        log(f"[kernels] {name} {shape}: idx equal, dist max rel err "
+            f"{rel:.3g}; {t[4]}; {bound_note(bounds[-1])}")
+        times.append(t)
+        shapes.append(shape)
+    return kernel_result(err, times, shapes, bounds)
+
+
+def key_quanta_off(name, d, dp) -> int:
+    """B9's distances against the plain version's: equal, or one key
+    quantum (bit 16 of the f32) off; returns how many entries are."""
+    import torch
+
+    bits = (d.view(torch.int32) - dp.view(torch.int32)).abs()
+    if not ((bits == 0) | (bits == 1 << 16)).all():
+        raise AssertionError(f"{name}: a distance is more than one key "
+                             "quantum off the plain version's")
+    return int((bits != 0).sum())
+
+
+def compare_nn_packed(a, b):
+    """B9 at (xyz1, xyz2): idx equal to the plain version's, dist equal
+    or one key quantum off (the entries that are, counted); then read
+    against K3 as scripts/ab_threenn_packed.py reads the TPU kernels,
+    with the bounds of tests/test_pallas_tpu.py:236-242."""
+    from articulated_pose_tpu_torch.ops.kernels import three_nn
+
+    d, i = three_nn.three_nn_packed(a, b)
+    dp, ip = three_nn.three_nn_packed_plain(a, b)
+    check_equal("three_nn_packed indices", (i,), (ip,))
+    n_off = key_quanta_off("three_nn_packed", d, dp)
+    err = (d - dp).abs().max().item()
+    t = time_both(lambda: three_nn.three_nn_packed(a, b),
+                  lambda: three_nn.three_nn_packed_plain(a, b),
+                  lambda: nn_library(a, b))
+    bounds = [nn_bound(a, b, d, i)]
+    shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
+    log(f"[kernels] three_nn_packed {shape}: idx equal, dist equal but for "
+        f"{n_off} of {d.numel()} entries one key quantum off; {t[4]}; "
+        f"{bound_note(bounds[0])}")
+
+    de, ie = three_nn.three_nn(a, b)
+    agree = (i == ie).double().mean().item()
+    rel = ((d - de).abs() / de.clamp_min(1e-9)).max().item()
+    q, p = a.double(), b.double()
+    chosen = p.gather(1, i.long().reshape(i.shape[0], -1, 1).expand(
+        -1, -1, 3)).reshape(*i.shape, 3)
+    d_true = ((q.unsqueeze(2) - chosen) ** 2).sum(-1)
+    d64, de64 = d.double(), de.double()
+    ok = ((d64 <= d_true * (1 + 1e-5) + 4e-6).all()
+          and (d64 >= d_true * (1 - 2 ** -7) - 4e-6).all()
+          and (d_true <= de64 + de64 * (4 * 2 ** -7) + 1e-5).all())
+    log(f"[kernels] three_nn_packed vs three_nn (ab_threenn_packed.py's "
+        f"reading): idx agreement {agree:.6f}, max reldiff dist {rel:.3e}; "
+        f"within tests/test_pallas_tpu.py's truncation bounds: {bool(ok)}")
+    if not ok:
+        raise AssertionError("three_nn_packed leaves the key-truncation band "
+                             "of the exact 3-NN")
+    return kernel_result(err, [t], [shape], bounds), (dp, ip)
 
 
 def compare_kernels(dev):
+    """Phase 2.  Returns each kernel's JSON entry, and the kernel entries
+    of phase 9: (name, call, the plain version's outputs)."""
     import torch
 
     from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
@@ -275,17 +440,26 @@ def compare_kernels(dev):
         ball_query.ball_query_group_plain, serve_cases, 1e-6)
     results["ball_query_group_packed"] = compare_grouping(
         "ball_query_group_packed", ball_query.ball_query_group_packed,
-        ball_query.ball_query_group_packed_plain, serve_cases, 0.0)
+        ball_query.ball_query_group_packed_plain, serve_cases, 0.0,
+        point_flops=NORM_FLOPS + QUANT_FLOPS)
 
-    # B2: the serving cloud's first level, and the N-level path's chain
-    # 8192 -> 1024 -> 256 -> 64 -> 16, each level on the last one's picks
+    # B2: the serving cloud's first level, the N-level path's chain
+    # 8192 -> 1024 -> 256 -> 64 -> 16, each level on the last one's
+    # picks, and the stage profiler's fps1 / fps2 (below)
     nlevel = torch.from_numpy(
         rng.rand(NLEVEL_B, NLEVEL_N, 3).astype(np.float32)).to(dev)
     chain, level = [], nlevel
     for npoint in NLEVEL_SPEC["sa_npoints"]:
         chain.append((level, npoint))
         level = fps.fps(level, npoint)[1]
-    results["fps"] = compare_fps_single([(cloud, 512)] + chain)
+
+    # the stage profiler's inputs: profile_stages draws them from seed 0
+    # in this order (P, Q1, Q2), which are also ab_threenn_packed.py's Q, P
+    prng = np.random.RandomState(0)
+    P64, Q1, Q2 = (torch.from_numpy(prng.rand(PROFILE_B, n, 3).astype(
+        np.float32)).to(dev) for n in (N_POINTS, 512, 128))
+    results["fps"] = compare_fps_single([(cloud, 512)] + chain
+                                        + [(P64, 512), (Q1, 128)])
 
     # B8 at SA1 and SA2, a few queries moved out of the cloud so that
     # the zero-hit fallback runs; every output equal
@@ -295,7 +469,8 @@ def compare_kernels(dev):
     results["ball_query_group_bucket"] = compare_grouping(
         "ball_query_group_bucket", ball_query.ball_query_group_bucket,
         ball_query.ball_query_group_bucket_plain,
-        ((cloud, far1, 0.2, False), (xyz1, far2, 0.4, True)), 0.0)
+        ((cloud, far1, 0.2, False), (xyz1, far2, 0.4, True)), 0.0,
+        whole_cloud=True)
     for pts, q, r in ((cloud, far1, 0.2), (xyz1, far2, 0.4)):
         _, cnt, _ = ball_query.ball_query_group_bucket(r, 64, pts, q, False)
         if not ((cnt[:, :4] == 0).all() and (cnt[:, 4:] > 0).all()):
@@ -303,40 +478,79 @@ def compare_kernels(dev):
                                  "queries must be the only ones with no hit")
 
     # B6: the large-cloud path's SA1 (32768 -> 512) and SA2 (512 -> 128)
-    times, shapes = [], []
-    for pts, q, r in ((large, lxyz1, 0.2), (lxyz1, lxyz2, 0.4)):
-        idx, cnt = ball_query.ball_query_idx(r, 64, pts, q)
-        check_equal(f"ball_query_idx r={r}", (idx, cnt),
-                    ball_query.ball_query_idx_plain(r, 64, pts, q))
-        t = time_both(lambda: ball_query.ball_query_idx(r, 64, pts, q),
-                      lambda: ball_query.ball_query_idx_plain(r, 64, pts, q))
-        shape = f"B{LARGE_B} N{pts.shape[1]} M{q.shape[1]} S64 r{r}"
-        log(f"[kernels] ball_query_idx {shape}: idx, cnt equal; {t[4]} "
-            f"(mean cnt {cnt.float().mean().item():.2f})")
-        times.append(t)
-        shapes.append(shape)
-    results["ball_query_idx"] = kernel_result(0.0, times, shapes)
+    results["ball_query_idx"] = compare_idx(
+        "ball_query_idx", ball_query.ball_query_idx,
+        ball_query.ball_query_idx_plain,
+        ((large, lxyz1, 0.2), (lxyz1, lxyz2, 0.4)))
+
+    # B5: the stage profiler's bq1 (2048 -> 512, r 0.2) and bq2
+    results["ball_query_point"] = compare_idx(
+        "ball_query_point", ball_query.ball_query_point,
+        ball_query.ball_query_point_plain, ((P64, Q1, 0.2), (Q1, Q2, 0.4)))
+
+    # B5g at the same shapes (tests/test_pallas_tpu.py:89-90), four
+    # queries per cloud moved out of it: every output equal
+    def grouped_first(fn):
+        def call(r, S, pts, q, emit_idx=True):
+            idx, cnt, g = fn(r, S, pts, q)
+            return g, cnt, idx
+        return call
+
+    gfar1, gfar2 = Q1.clone(), Q2.clone()
+    gfar1[:, :4] += 10.0
+    gfar2[:, :4] += 10.0
+    g_cases = ((P64, gfar1, 0.2), (Q1, gfar2, 0.4))
+    results["ball_query_point_grouped"] = compare_grouping(
+        "ball_query_point_grouped",
+        grouped_first(ball_query.ball_query_point_grouped),
+        grouped_first(ball_query.ball_query_point_grouped_plain),
+        [(p, q, r, True) for p, q, r in g_cases], 0.0)
+    entries = []
+    for pts, q, r in g_cases:
+        out = ball_query.ball_query_point_grouped(r, 64, pts, q)
+        if not (out[1][:, :4] == 0).all():
+            raise AssertionError("ball_query_point_grouped: a moved query "
+                                 "has a hit")
+        entries.append(("ball_query_point_grouped",
+                        lambda r=r, pts=pts, q=q: ball_query.
+                        ball_query_point_grouped(r, 64, pts, q),
+                        ball_query.ball_query_point_grouped_plain(
+                            r, 64, pts, q)))
 
     # K3: FP2 and FP3 of both paths
-    err, times, shapes = 0.0, [], []
-    for a, b in ((xyz1, xyz2), (cloud, xyz1), (lxyz1, lxyz2),
-                 (large, lxyz1)):
-        d, i = three_nn.three_nn(a, b)
-        dp, ip = three_nn.three_nn_plain(a, b)
-        check_equal("three_nn indices", (i,), (ip,))
-        rel = ((d - dp).abs() / dp.abs().clamp_min(1e-30)).max().item()
-        if rel > 1e-6:
-            raise AssertionError(f"three_nn distances off by {rel} relative")
-        err = max(err, (d - dp).abs().max().item())
-        t = time_both(lambda: three_nn.three_nn(a, b),
-                      lambda: three_nn.three_nn_plain(a, b))
-        shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
-        log(f"[kernels] three_nn {shape}: idx equal, dist max rel err "
-            f"{rel:.3g}; {t[4]}")
-        times.append(t)
-        shapes.append(shape)
-    results["three_nn"] = kernel_result(err, times, shapes)
-    return results
+    results["three_nn"] = compare_nn(
+        "three_nn", three_nn.three_nn, three_nn.three_nn_plain,
+        ((xyz1, xyz2), (cloud, xyz1), (lxyz1, lxyz2), (large, lxyz1)), 1e-6)
+
+    # B7 at test_pallas_tpu.py:248's shape and at an M that is no
+    # multiple of the kernel's 512-candidate tile, with an exact tie
+    # across tiles for query 0 (candidate 10 and its copy at 600)
+    srng = np.random.RandomState(9)
+    s_cases = []
+    for B, N, M in STREAM_SHAPES:
+        a = torch.from_numpy(srng.rand(B, N, 3).astype(np.float32)).to(dev)
+        b = torch.from_numpy(srng.rand(B, M, 3).astype(np.float32)).to(dev)
+        b[:, 600] = b[:, 10]
+        a[:, 0] = b[:, 10]
+        s_cases.append((a, b))
+    results["three_nn_stream"] = compare_nn(
+        "three_nn_stream", three_nn.three_nn_stream,
+        three_nn.three_nn_stream_plain, s_cases, 0.0)
+    for a, b in s_cases:
+        out = three_nn.three_nn_stream(a, b)
+        if not ((out[1][:, 0, 0] == 10).all()
+                and (out[1][:, 0, 1] == 600).all()):
+            raise AssertionError("three_nn_stream: the cross-tile tie must "
+                                 "go to the lower index")
+        entries.append(("three_nn_stream",
+                        lambda a=a, b=b: three_nn.three_nn_stream(a, b),
+                        three_nn.three_nn_stream_plain(a, b)))
+
+    # B9 at ab_threenn_packed.py's shape and inputs
+    results["three_nn_packed"], plain = compare_nn_packed(P64, Q1)
+    entries.append(("three_nn_packed",
+                    lambda: three_nn.three_nn_packed(P64, Q1), plain))
+    return results, entries
 
 
 # ---------------------------------------------------------------- phase 3
@@ -760,6 +974,58 @@ def nlevel_path(dev):
     return counts
 
 
+# ------------------------------------------------------------ phases 8-9
+def profile_path(dev):
+    """Phase 8: the stage profiler over every stage; returns its counts."""
+    from articulated_pose_tpu_torch import profile_stages
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    reset_launch_counts()
+    rows = profile_stages.run(batch=PROFILE_B, points=N_POINTS,
+                              iters=PROFILE_ITERS, device=str(dev))
+    counts = launch_counts()
+    if [r["stage"] for r in rows] != list(profile_stages.STAGES):
+        raise AssertionError("profile_stages did not run every stage")
+    for r in rows:
+        if not (r["wall_ms"] > 0 and r["device_ms"] > 0
+                and r["device_ops"] > 0):
+            raise AssertionError(f"[profile] {r['stage']}: no device work "
+                                 f"recorded ({r})")
+    per_call = {r["stage"]: r["launches"] for r in rows}
+    want = {"forward": {"fps2": 1, "ball_query_group": 2, "three_nn": 2},
+            "fps1": {"fps": 1}, "fps2": {"fps": 1},
+            "bq1": {"ball_query_point": 1}, "bq2": {"ball_query_point": 1},
+            "threenn": {"three_nn": 1}}
+    for stage, launches in want.items():
+        if per_call[stage] != launches:
+            raise AssertionError(f"[profile] {stage}: launches per call "
+                                 f"{per_call[stage]}, expected {launches}")
+    log(f"[profile] B={PROFILE_B} N={N_POINTS}, {PROFILE_ITERS} iterations "
+        f"per stage; launches {counts}")
+    return counts
+
+
+def kernel_entries(entries):
+    """Phase 9: each kernel entry called once at phase 2's shapes; its
+    outputs must equal the plain version's, but B9's distances, which may
+    be one key quantum off.  Returns the path's counts."""
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    reset_launch_counts()
+    got = [(name, call(), want) for name, call, want in entries]
+    counts = launch_counts()
+    for name, out, want in got:
+        if name == "three_nn_packed":
+            key_quanta_off(f"[entries] {name}", out[0], want[0])
+            out, want = out[1:], want[1:]
+        check_equal(f"[entries] {name}", out, want)
+    log(f"[entries] {len(entries)} calls, outputs held against the plain "
+        f"versions; launches {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -796,12 +1062,22 @@ def main() -> int:
         log(f"[build] {source}: {seconds[source]:.2f} s; " + " | ".join(ptxas))
     log(f"[build] all sources in parallel: {time.perf_counter() - t0:.2f} s")
 
-    kernels = compare_kernels(dev)
-    pose_oracle(dev)
-    paths = serve(dev)
-    paths["large"] = large_cloud(dev)
-    paths.update(bucket_path(dev))
-    paths.update(nlevel_path(dev))
+    with phase("2 kernels"):
+        kernels, entries = compare_kernels(dev)
+    with phase("3 pose oracle"):
+        pose_oracle(dev)
+    with phase("4 serve"):
+        paths = serve(dev)
+    with phase("5 large cloud"):
+        paths["large"] = large_cloud(dev)
+    with phase("6 bucket"):
+        paths.update(bucket_path(dev))
+    with phase("7 N-level"):
+        paths.update(nlevel_path(dev))
+    with phase("8 profiler"):
+        paths["profile_stages"] = profile_path(dev)
+    with phase("9 kernel entries"):
+        paths["kernel entries"] = kernel_entries(entries)
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

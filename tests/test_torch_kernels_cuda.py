@@ -12,7 +12,9 @@ The kernels repeat the plain versions' arithmetic operation for
 operation with round-to-nearest intrinsics, so indices and counts must
 be equal, not just close.  Shapes are the serving path's at B=16 and
 the large-cloud path's (N=32768) at B=2-4; single-level FPS also in
-each of its variants (N up to 100003).
+each of its variants (N up to 100003); the rank-select ball query and
+the packed 3-NN at the stage profiler's B=64, the streaming 3-NN at
+(4, 2048 <- 16384).
 """
 
 import numpy as np
@@ -196,6 +198,111 @@ def test_ball_query_group_bucket_bucket_widths(dev, N, S):
         assert torch.equal(g, w)
 
 
+# B5: the idx-only scan under its own entry, at the stage profiler's
+# bq1 / bq2 shapes and a ragged one with more queries than points
+@pytest.mark.parametrize("B,N,M,r", [(64, 2048, 512, 0.2), (64, 512, 128, 0.4),
+                                     (2, 700, 1100, 0.3)])
+def test_ball_query_point_matches_plain(dev, B, N, M, r):
+    xyz = _cloud(16, B, N, dev)
+    q = _cloud(17, B, M, dev)
+    before = KERNELS["ball_query_point"].launches
+    idx, cnt = ball_query.ball_query_point(r, 64, xyz, q)
+    torch.cuda.synchronize()
+    assert KERNELS["ball_query_point"].launches == before + 1
+    idxp, cntp = ball_query.ball_query_point_plain(r, 64, xyz, q)
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(idx, idxp)
+
+
+def test_ball_query_point_takes_clouds_past_2_24(dev):
+    # ball_query_idx refuses N >= 2^24 (the stream tier's f32 index); B5
+    # has no such limit, and the scan's offsets are 64-bit
+    # points past 2^24 sit apart, so the queries among them hit only there
+    N = (1 << 24) + 1000
+    xyz = _cloud(18, 1, N, dev)
+    xyz[:, 1 << 24:] += 2.0
+    q = torch.cat([xyz[:, -3:], xyz[:, :2]], 1).contiguous()
+    idx, cnt = ball_query.ball_query_point(0.2, 16, xyz, q)
+    torch.cuda.synchronize()
+    idxp, cntp = ball_query.ball_query_point_plain(0.2, 16, xyz, q)
+    assert torch.equal(cnt, cntp) and torch.equal(idx, idxp)
+    assert (idx[0, :3] >= 1 << 24).all() and (cnt[0, :3] > 1).all()
+
+
+@pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4),
+                                   (700, 1100, 0.3)])
+def test_ball_query_point_grouped_matches_plain(dev, N, M, r):
+    xyz = _cloud(19, 8, N, dev)
+    q = _cloud(20, 8, M, dev)
+    q[:, :3] += 5.0                             # queries with no hit
+    before = KERNELS["ball_query_point_grouped"].launches
+    idx, cnt, g = ball_query.ball_query_point_grouped(r, 64, xyz, q)
+    torch.cuda.synchronize()
+    assert KERNELS["ball_query_point_grouped"].launches == before + 1
+    idxp, cntp, gp = ball_query.ball_query_point_grouped_plain(r, 64, xyz, q)
+    assert (cnt[:, :3] == 0).all() and (idx[:, :3] == 0).all()
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(idx, idxp)
+    assert torch.equal(g, gp)
+
+
+# B7: K3 under its own entry, at tests/test_pallas_tpu.py:248's shape and
+# at Ms off the 512-candidate tile, with an exact tie across tiles
+@pytest.mark.parametrize("B,N,M", [(4, 2048, 16384), (2, 300, 1100),
+                                   (2, 100, 513)])
+def test_three_nn_stream_matches_plain(dev, B, N, M):
+    xyz1 = _cloud(21, B, N, dev)
+    xyz2 = _cloud(22, B, M, dev)
+    xyz2[:, 512] = xyz2[:, 7]
+    xyz1[:, 0] = xyz2[:, 7]
+    before = KERNELS["three_nn_stream"].launches
+    d, i = three_nn.three_nn_stream(xyz1, xyz2)
+    torch.cuda.synchronize()
+    assert KERNELS["three_nn_stream"].launches == before + 1
+    dp, ip = three_nn.three_nn_stream_plain(xyz1, xyz2)
+    assert torch.equal(i, ip)
+    assert torch.equal(d, dp)
+    assert (i[:, 0, :2] == torch.tensor([7, 512], device=dev)).all()
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_three_nn_spare_slots(dev, M):
+    xyz1 = _cloud(23, 2, 40, dev)
+    xyz2 = _cloud(24, 2, M, dev)
+    d, i = three_nn.three_nn_stream(xyz1, xyz2)
+    dp, ip = three_nn.three_nn_stream_plain(xyz1, xyz2)
+    assert torch.equal(i, ip) and torch.equal(d, dp)
+    assert torch.isinf(d[..., M:]).all() and (i[..., M:] == 0).all()
+    d, i = three_nn.three_nn_packed(xyz1, xyz2)
+    dp, ip = three_nn.three_nn_packed_plain(xyz1, xyz2)
+    assert torch.equal(i, ip)
+    assert torch.equal(d.view(torch.int32), dp.view(torch.int32))
+    assert (i[..., M:] == 65535).all()
+    assert (d[..., M:].view(torch.int32) == 0x7FFF0000).all()
+
+
+# B9 at ab_threenn_packed.py's shape, a ragged one and a duplicate point
+@pytest.mark.parametrize("B,N,M", [(64, 2048, 512), (2, 300, 1100),
+                                   (2, 100, 40)])
+def test_three_nn_packed_matches_plain(dev, B, N, M):
+    xyz1 = _cloud(25, B, N, dev)
+    xyz2 = _cloud(26, B, M, dev)
+    xyz2[:, 17] = xyz2[:, 3]
+    xyz1[:, 0] = xyz2[:, 3]
+    before = KERNELS["three_nn_packed"].launches
+    d, i = three_nn.three_nn_packed(xyz1, xyz2)
+    torch.cuda.synchronize()
+    assert KERNELS["three_nn_packed"].launches == before + 1
+    dp, ip = three_nn.three_nn_packed_plain(xyz1, xyz2)
+    assert torch.equal(i, ip)
+    # the kernel repeats the plain d² operation for operation, so the
+    # truncated keys agree; one key quantum is the most a last-bit
+    # difference of d² could move them
+    bits = (d.view(torch.int32) - dp.view(torch.int32)).abs()
+    assert ((bits == 0) | (bits == 1 << 16)).all()
+    assert (i[:, 0, :2] == torch.tensor([3, 17], device=dev)).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     xyz = _cloud(5, 2, 64, dev)
     with pytest.raises(ValueError, match="float32"):
@@ -210,3 +317,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fps.fps(xyz, 65)
     with pytest.raises(ValueError, match="power-of-two bucket"):
         ball_query.ball_query_group_bucket(0.1, 24, xyz, xyz)
+    with pytest.raises(ValueError, match="contiguous"):
+        ball_query.ball_query_point(0.1, 4, xyz, xyz[:, ::2])
+    with pytest.raises(ValueError, match="empty"):
+        ball_query.ball_query_point_grouped(0.1, 0, xyz, xyz)
+    with pytest.raises(ValueError, match="float32"):
+        three_nn.three_nn_stream(xyz, xyz.double())
+    with pytest.raises(ValueError, match="65536"):
+        three_nn.three_nn_packed(xyz, _cloud(5, 2, 65537, dev))

@@ -196,11 +196,27 @@ class TestDispatch:
         g, c, i = ball_query.ball_query_group_bucket(0.3, 8, xyz, x1)
         gp, cp, ip = ball_query.ball_query_group_bucket_plain(0.3, 8, xyz, x1)
         assert torch.equal(g, gp) and torch.equal(c, cp) and torch.equal(i, ip)
+        i, c = ball_query.ball_query_point(0.3, 8, xyz, x1)
+        ip, cp = ball_query.ball_query_point_plain(0.3, 8, xyz, x1)
+        assert torch.equal(c, cp) and torch.equal(i, ip)
+        i, c, g = ball_query.ball_query_point_grouped(0.3, 8, xyz, x1)
+        ip, cp, gp = ball_query.ball_query_point_grouped_plain(0.3, 8, xyz,
+                                                               x1)
+        assert torch.equal(g, gp) and torch.equal(c, cp) and torch.equal(i, ip)
+        d, j = three_nn.three_nn_stream(xyz, x1)
+        dp, jp = three_nn.three_nn_stream_plain(xyz, x1)
+        assert torch.equal(d, dp) and torch.equal(j, jp)
+        d, j = three_nn.three_nn_packed(xyz, x1)
+        dp, jp = three_nn.three_nn_packed_plain(xyz, x1)
+        assert torch.equal(d, dp) and torch.equal(j, jp)
         assert launch_counts() == {"fps2": 0, "fps": 0, "ball_query_group": 0,
                                    "ball_query_group_packed": 0,
                                    "ball_query_idx": 0,
+                                   "ball_query_point": 0,
+                                   "ball_query_point_grouped": 0,
                                    "ball_query_group_bucket": 0,
-                                   "three_nn": 0}
+                                   "three_nn": 0, "three_nn_stream": 0,
+                                   "three_nn_packed": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
@@ -218,3 +234,11 @@ class TestDispatch:
             fps.fps(xyz, 4)
         with pytest.raises(ValueError, match="CUDA"):
             ball_query.ball_query_group_bucket(0.1, 4, xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            ball_query.ball_query_point(0.1, 4, xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            ball_query.ball_query_point_grouped(0.1, 4, xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            three_nn.three_nn_stream(xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            three_nn.three_nn_packed(xyz, xyz)

@@ -56,7 +56,7 @@ class TestServedSlice:
         cfg = config.NetworkConfig(**kw)
         pcfg = port_cfg(jcfg)
         pred = PosePredictor(cfg, state_dict=state_dict_from_flax(flat),
-                             pose_cfg=pcfg)
+                             pose_cfg=pcfg, device="cpu")
         P = clouds(2)
         want = jpred(P)
         got = pred(P, draws=jax_draws(jax.random.PRNGKey(cfg.seed), 2, pcfg))
@@ -75,7 +75,7 @@ class TestServedSlice:
         kw, jcfg, flat = tiny_setup()
         pred = PosePredictor(config.NetworkConfig(**kw),
                              state_dict=state_dict_from_flax(flat),
-                             pose_cfg=port_cfg(jcfg))
+                             pose_cfg=port_cfg(jcfg), device="cpu")
         P = clouds(5, seed=1)
         out = serve_clouds(pred, P, batch_size=2)
         assert out["R"].shape == (5, 2, 3, 3)
@@ -99,14 +99,27 @@ class TestServedSlice:
         sd = state_dict_from_flax(flat)
         torch.save(sd, tmp_path / "model.pt")
         a = PosePredictor(config.NetworkConfig(**kw), state_dict=sd,
-                          pose_cfg=port_cfg(jcfg))
+                          pose_cfg=port_cfg(jcfg), device="cpu")
         b = PosePredictor(config.NetworkConfig(**kw),
                           ckpt_path=str(tmp_path / "model.pt"),
-                          pose_cfg=port_cfg(jcfg))
+                          pose_cfg=port_cfg(jcfg), device="cpu")
         P = clouds(2)
         np.testing.assert_array_equal(a(P).R, b(P).R)
         with pytest.raises(ValueError, match="exactly one"):
             PosePredictor(config.NetworkConfig(**kw))
+
+    def test_serves_on_the_card_by_default(self):
+        # the default device is the card; without one it raises, naming
+        # the device, rather than serving on the CPU
+        kw, _, flat = tiny_setup()
+        sd = state_dict_from_flax(flat)
+        if torch.cuda.is_available():
+            pred = PosePredictor(config.NetworkConfig(**kw), state_dict=sd)
+            assert pred.device.type == "cuda"
+            assert next(pred.model.parameters()).is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="device cuda"):
+                PosePredictor(config.NetworkConfig(**kw), state_dict=sd)
 
 
 class TestConfigAndRegistry:
