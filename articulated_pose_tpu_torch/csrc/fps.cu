@@ -1,90 +1,84 @@
 // Farthest point sampling, two-level (B, N, 3) -> N -> np1 -> np2 and
-// single-level (B, N, 3) -> npoint.
+// single-level (B, N, 3) -> npoint, in one kernel (np2 = 0: one level).
 //
-// fps2_launch (K1) replaces the TPU kernel articulated_pose_tpu/ops/
-// pallas/fps.py::farthest_point_sample2_pallas (body _fps2_kernel);
-// fps_launch (B2) replaces farthest_point_sample_pallas (body
-// _fps_kernel), which the backbone runs once per SA stage when its
-// pyramid is not two-level.  Same semantics in both: the first pick is
-// index 0, every later pick maximises the running minimum squared
-// distance (dx*dx + dy*dy) + dz*dz to the picked set, ties go to the
-// lowest index, and level 2 runs on the np1 picks, so idx2 holds LOCAL
-// indices into the level-1 subset.  Both run the one recurrence below,
-// fps_level: the single-level kernel is its first level alone.
+// The launch with np2 > 0 (K1, `fps2`) replaces the TPU kernel
+// articulated_pose_tpu/ops/pallas/fps.py::farthest_point_sample2_pallas
+// (body _fps2_kernel); with np2 = 0 (B2, `fps`) it replaces
+// farthest_point_sample_pallas (body _fps_kernel).  Semantics: the first
+// pick is index 0, every later pick maximises the running minimum
+// squared distance (dx*dx + dy*dy) + dz*dz to the picked set (round to
+// nearest, no contraction), ties go to the lowest index, and level 2
+// runs on the np1 picks, so idx2 holds LOCAL indices.
 //
-// What bounds it on the card: the recurrence is serial in the picks
-// (np1 + np2 block-wide argmax steps per cloud), so it is latency bound,
-// not bandwidth bound: one block per cloud, each step a few loads and
-// FLOPs per thread plus a two-stage shuffle reduction with two barriers.
-// The design keeps as much of every step on chip as the cloud allows,
-// in three variants that the wrapper picks by N:
-//   kSmem       coordinates and min-distance state in shared memory
-//               (16 B per point, 32 KB at N = 2048; up to ~14k points),
-//               the level-1 picks captured there for level 2;
-//   kSmemState  the 4 B/point state in shared memory (128 KB at
-//               N = 32768; up to ~57k points), coordinates read from
-//               L2 (a cloud of 32768 points is 384 KB, and the whole
-//               batch stays L2-resident across the np1 steps);
-//   kGlobal     state in a global scratch row per cloud as well, for
-//               any N: each step then streams 16 B per point from L2.
-// The TPU kernel sized its batch tile to N so its VMEM state fit; a
-// block's shared memory is the card's counterpart and the variants are
-// its sizing.  With one block per cloud, small batches leave most SMs
-// idle; splitting a cloud over a cluster is later work.
+// What bounds it on the card: the recurrence is serial in the picks, so
+// a cloud's time is npoint times one step, far above the bytes and
+// FLOPs it needs.  A step is (a) the distance update and argmax of the
+// points a thread holds, ~14 instructions a point, and (b) the argmax
+// across lanes, warps and CTAs, a chain of dependent latencies (redux,
+// ballot + ffs, a shared-memory record and a barrier, and in a cluster
+// a DSMEM push and an mbarrier wait).  The winner's coordinates start
+// the next step.  The design:
+//
+// 1. The cloud stays on chip, in registers: each thread keeps P points
+//    (coordinates and running minima) at compile-time slots, a
+//    contiguous run of the cloud (thread t of a CTA holds points
+//    begin + t * P ..); an empty slot's minimum is -1, so the scan has
+//    no bound to test, and a thread's argmax over its slots is a tree.
+//    A variant is (warps W, P).  One warp needs no barrier at all; four
+//    warps, one a scheduler, step faster than eight or sixteen (their
+//    barrier and record tree are shorter) and run a CTA's scan as
+//    fast.  A streamed variant, for any N, keeps the minima in a
+//    device-memory row and reads the coordinates from L2.
+// 2. One barrier per pick, no dependent reload.  A warp reduces with
+//    redux.sync: the max of the distances' bits (a non-negative float
+//    orders as its bits), then, since a lane's run precedes the next
+//    lane's, the lowest lane holding that max (ballot + ffs) holds the
+//    lowest index.  That lane writes the warp's record (dist, index,
+//    x, y, z) to a shared-memory slot double-buffered by the step's
+//    parity; one barrier; then every thread reads the W dists in W / 4
+//    vector loads and takes the lowest warp holding the largest by a
+//    register tree (warps hold rising runs too), and the winner's point
+//    from its record: no second barrier, broadcast or reload.  The
+//    streamed variant's points interleave, so its lanes and records
+//    break ties with a redux.sync min over the indices.  The picks
+//    leave through the writer warp's registers, 32 at a time (Kept).
+// 3. A large cloud is split over a thread-block cluster of C CTAs
+//    (C in 1, 2, 4, 8, 16; above 8 non-portable).  Each CTA owns a
+//    contiguous slice of N and reduces it to one record as above; lane r
+//    of warp 0 pushes that record into CTA r's slot for this CTA
+//    (st.async into distributed shared memory, completing bytes on CTA
+//    r's mbarrier of this parity); every CTA waits on its own mbarrier
+//    for the C records, then reduces them (lane r takes record r),
+//    ties by global index, never by rank.  The wait is one-way:
+//    a CTA waits for its peers' records, not for a cluster barrier's
+//    round trip, which alone read slower on an H100 than the whole
+//    exchange.  Every CTA learns every pick's coordinates, so level 2 of
+//    fps2 runs in CTA 0 alone from the picks it wrote (on as few warps
+//    as hold them) while the other CTAs exit.
+//
+// Timed on an H100 and left out: a 64-bit key (dist, ~index) per thread
+// combined by a shared-memory atomicMax, then a lookup of the winner in
+// a shared copy of the cloud (about twice the step of the records
+// above); the writer thread storing each pick to device memory as it
+// came (the next barrier waits for the store; Kept below stores 32
+// picks at a time instead).
+//
+// Which variant and cluster a shape takes is decided once, in the
+// wrapper (ops/kernels/fps.py::fps_plan), from a sweep on the card
+// (articulated_pose_tpu_torch/fps_sweep.py).  The TPU kernel sized its
+// batch tile to N so its VMEM state fit; here the register file of a
+// CTA, or of a cluster, is that state's home.
 
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstdint>
 
 namespace {
 
-enum Variant { kSmem = 0, kSmemState = 1, kGlobal = 2 };
-
-// threads per block: the small variant keeps its measured 512; the
-// large ones take 1024 for more loads in flight per step
-template <int V>
-__host__ __device__ constexpr int threads_of() {
-  return V == kSmem ? 512 : 1024;
-}
-
-__device__ __forceinline__ void take_better(float& v, int& i, float v2,
-                                            int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-// Block-wide argmax (lowest index on ties).  Every thread returns the
-// winner.  red_v/red_i hold one entry per warp, *winner one int.
-template <int kThreads>
-__device__ int block_argmax(float v, int i, float* red_v, int* red_i,
-                            int* winner) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    take_better(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                __shfl_down_sync(0xffffffffu, i, off));
-  }
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? red_v[lane] : -1.0f;
-    i = lane < kWarps ? red_i[lane] : INT_MAX;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      take_better(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                  __shfl_down_sync(0xffffffffu, i, off));
-    }
-    if (lane == 0) *winner = i;
-  }
-  __syncthreads();
-  return *winner;
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFar = 0x7e967699;      // the bits of 1e38f, the initial minimum
+constexpr int kMaxCluster = 16;
+constexpr int kRecordBytes = 20;      // a CTA's record: 16 + 4 bytes
 
 __device__ __forceinline__ float sqdist(float x, float y, float z, float lx,
                                        float ly, float lz) {
@@ -95,264 +89,524 @@ __device__ __forceinline__ float sqdist(float x, float y, float z, float lx,
                    __fmul_rn(dz, dz));
 }
 
-// Points as three planes (shared memory).
-struct Planes {
-  const float* x;
-  const float* y;
-  const float* z;
-  __device__ float3 operator()(int k) const { return {x[k], y[k], z[k]}; }
+// The input cloud: read-only for the whole launch.
+struct Input {
+  const float* __restrict__ p;
+  __device__ float3 operator()(int k) const {
+    return make_float3(__ldg(p + 3 * k), __ldg(p + 3 * k + 1),
+                       __ldg(p + 3 * k + 2));
+  }
 };
 
-// Points as (n, 3) rows in device memory.  Plain loads, not __ldg:
-// level 2 reads the level-1 picks that this block wrote.
-struct Rows {
+// The level-1 picks, which this CTA wrote: plain loads.
+struct Written {
   const float* p;
   __device__ float3 operator()(int k) const {
-    return {p[3 * k + 0], p[3 * k + 1], p[3 * k + 2]};
+    return make_float3(p[3 * k], p[3 * k + 1], p[3 * k + 2]);
   }
 };
 
-// One FPS level over n points, with mind[] (shared or device memory) as
-// the running state.  Writes the picks' indices to idx_out and
-// coordinates to xyz_out (device memory) and, when px is given, to
-// shared memory for the next level.
-template <int kThreads, typename Points>
-__device__ void fps_level(Points pts, float* mind, int n, int npoint,
-                          int* idx_out, float* xyz_out, float* px, float* py,
-                          float* pz, float* red_v, int* red_i, int* winner) {
-  for (int k = threadIdx.x; k < n; k += kThreads) mind[k] = 1e38f;
-  __syncthreads();
-  int last = 0;
-  for (int j = 0; j < npoint; ++j) {
-    const float3 l = pts(last);
-    if (threadIdx.x == 0) {
-      idx_out[j] = last;
-      xyz_out[3 * j + 0] = l.x;
-      xyz_out[3 * j + 1] = l.y;
-      xyz_out[3 * j + 2] = l.z;
-      if (px != nullptr) {
-        px[j] = l.x;
-        py[j] = l.y;
-        pz[j] = l.z;
+// A candidate: its running minimum's bits (-1: none), index, point.
+struct Pick {
+  int dist, idx;
+  float x, y, z;
+};
+
+__device__ __forceinline__ Pick none() {
+  return {-1, INT_MAX, 0.0f, 0.0f, 0.0f};
+}
+
+// The lane holding the warp's best candidate: the largest dist, then
+// the lowest index.  kOrdered: the lanes' indices rise with the lane, so
+// the lowest lane holding the largest dist holds the lowest index.
+template <bool kOrdered>
+__device__ __forceinline__ int best_lane(int dist, int idx) {
+  const int top = __reduce_max_sync(kFull, dist);
+  unsigned hold = __ballot_sync(kFull, dist == top);
+  if (!kOrdered) {
+    const int low = __reduce_min_sync(kFull, dist == top ? idx : INT_MAX);
+    hold = __ballot_sync(kFull, dist == top && idx == low);
+  }
+  return __ffs(hold) - 1;
+}
+
+__device__ __forceinline__ Pick from_lane(const Pick& c, int lane) {
+  return {__shfl_sync(kFull, c.dist, lane), __shfl_sync(kFull, c.idx, lane),
+          __shfl_sync(kFull, c.x, lane), __shfl_sync(kFull, c.y, lane),
+          __shfl_sync(kFull, c.z, lane)};
+}
+
+// Up to P points a thread, in registers: the `threads` threads split
+// begin .. end into rising runs as even as can be (thread t's run
+// first .. first + cnt - 1 in slots 0 .. cnt - 1).  An empty slot's
+// minimum is -1, below every distance: the scan updates every slot,
+// with no bound to test, and never picks an empty one.
+template <int P>
+struct RegSet {
+  static constexpr bool kOrdered = true;
+  float x[P], y[P], z[P];
+  int m[P];
+  int first;
+
+  template <typename Load>
+  __device__ void load(const Load& ld, int begin, int end, int threads) {
+    const int t = threadIdx.x;
+    const int each = (end - begin) / threads;
+    const int extra = (end - begin) % threads;
+    const int cnt = each + (t < extra ? 1 : 0);
+    first = begin + t * each + min(t, extra);
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      float3 p = make_float3(0.0f, 0.0f, 0.0f);
+      if (i < cnt) p = ld(first + i);
+      x[i] = p.x;
+      y[i] = p.y;
+      z[i] = p.z;
+      m[i] = i < cnt ? kFar : -1;
+    }
+  }
+
+  // Update the minima against the last pick; the thread's best point, by
+  // a tree over the slots in which the later slot wins only when strictly
+  // greater, so a tie keeps the lowest index (log2 P compares deep, not P).
+  __device__ Pick scan(const float3& l) {
+    Pick c[P];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      m[i] = min(m[i], __float_as_int(sqdist(x[i], y[i], z[i], l.x, l.y,
+                                             l.z)));
+      c[i] = {m[i], i, x[i], y[i], z[i]};
+    }
+#pragma unroll
+    for (int s = 1; s < P; s *= 2) {
+#pragma unroll
+      for (int i = 0; i + s < P; i += 2 * s) {
+        if (c[i + s].dist > c[i].dist) c[i] = c[i + s];
       }
     }
-    if (j == npoint - 1) break;
-    float best_v = -1.0f;
-    int best_i = INT_MAX;
-    for (int k = threadIdx.x; k < n; k += kThreads) {
-      const float3 p = pts(k);
-      const float m = fminf(mind[k], sqdist(p.x, p.y, p.z, l.x, l.y, l.z));
+    c[0].idx += first;
+    return c[0];
+  }
+};
+
+// Any number of points a thread, interleaved (point k on thread
+// k % threads, for coalesced reads): minima in a device-memory row
+// indexed by point, coordinates read each step.
+template <typename Load>
+struct StreamSet {
+  static constexpr bool kOrdered = false;
+  Load ld;
+  int* mind;
+  int begin, end, threads;
+
+  __device__ void init() {
+    for (int k = begin + threadIdx.x; k < end; k += threads) mind[k] = kFar;
+  }
+
+  __device__ Pick scan(const float3& l) {
+    Pick best = none();
+    for (int k = begin + threadIdx.x; k < end; k += threads) {
+      const float3 p = ld(k);
+      const int m = min(mind[k], __float_as_int(sqdist(p.x, p.y, p.z, l.x,
+                                                       l.y, l.z)));
       mind[k] = m;
-      if (m > best_v) {  // k rises per thread: strict > keeps the lowest
-        best_v = m;
-        best_i = k;
+      if (m > best.dist) best = {m, k, p.x, p.y, p.z};
+    }
+    return best;
+  }
+};
+
+// A step's records, double-buffered by the step's parity: one a warp,
+// and, in a cluster, one a CTA (written by the peers with st.async).
+template <int W>
+struct Slots {
+  float4 wxyz[2][W];
+  int4 crec[2][kMaxCluster];          // a CTA's dist, index, x, y (bits)
+  alignas(16) int wdist[2][W];        // read as int4 when W % 4 == 0
+  int widx[2][W];
+  float cz[2][kMaxCluster];           // and its z
+  unsigned long long mbar[2];
+};
+
+// The best of the W warp records of parity p, in every thread.  Warps
+// hold rising runs, so the lowest warp holding the largest dist holds
+// the lowest index: a tree in which the later warp wins only when
+// strictly greater.  The dists come in W / 4 vector loads, the winner's
+// point in one more: no reduction across lanes after the barrier.
+template <int W>
+__device__ __forceinline__ Pick from_records(const Slots<W>& s, int p) {
+  int d[W], k[W];
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int w = 0; w < W; w += 4) {
+      const int4 v = *reinterpret_cast<const int4*>(&s.wdist[p][w]);
+      d[w] = v.x;
+      d[w + 1] = v.y;
+      d[w + 2] = v.z;
+      d[w + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) d[w] = s.wdist[p][w];
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) k[w] = w;
+#pragma unroll
+  for (int step = 1; step < W; step *= 2) {
+#pragma unroll
+    for (int w = 0; w + step < W; w += 2 * step) {
+      if (d[w + step] > d[w]) {
+        d[w] = d[w + step];
+        k[w] = k[w + step];
       }
     }
-    last = block_argmax<kThreads>(best_v, best_i, red_v, red_i, winner);
   }
-  __syncthreads();
+  const float4 v = s.wxyz[p][k[0]];
+  return {d[0], s.widx[p][k[0]], v.x, v.y, v.z};
 }
 
-template <int V>
-size_t smem_bytes(int n, int np1) {
-  constexpr int kWarps = threads_of<V>() / 32;
-  const size_t red = sizeof(float) * kWarps + sizeof(int) * (kWarps + 1);
-  if (V == kSmem) {
-    return sizeof(float) * (4 * static_cast<size_t>(n) + 3 * np1) + red;
-  }
-  if (V == kSmemState) return sizeof(float) * static_cast<size_t>(n) + red;
-  return red;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// scratch: (batch, n) floats for kGlobal, unused otherwise.  xyz1 is not
-// __restrict__: the large variants read it back in level 2.
-template <int V>
-__global__ void __launch_bounds__(threads_of<V>())
-    fps2_kernel(const float* __restrict__ xyz, int n, int np1, int np2,
-                int* __restrict__ idx1, float* xyz1,
-                int* __restrict__ idx2, float* __restrict__ xyz2,
-                float* __restrict__ scratch) {
-  constexpr int kThreads = threads_of<V>();
-  constexpr int kWarps = kThreads / 32;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// The same shared-memory address in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void expect_bytes(unsigned long long* bar,
+                                             int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of `parity` has completed.  A record that never
+// arrives traps (a launch error) after ~1 s instead of hanging the card.
+__device__ __forceinline__ void wait_parity(unsigned long long* bar,
+                                            int parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (true) {
+    asm volatile(
+        "{\n\t"
+        ".reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t"
+        "}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 31)) __trap();
+  }
+}
+
+// Where lane r of warp 0 pushes this CTA's record: its slots in CTA r
+// for parity 0 (parity 1's lie one array row further).
+struct Peer {
+  uint32_t rec, z, bar;
+};
+
+// How the warps (and CTAs) of a level meet at each step.
+template <int W>
+struct Team {
+  Slots<W>* s;
+  int warps;   // active warps; records of the others stay none()
+  int bar;     // named barrier of the warps (warps > 1)
+  int ctas;    // 1, or the cluster's size
+  Peer peer;   // lane r < ctas of warp 0: CTA r's slot for this CTA
+};
+
+// Step j's pick from each thread's best candidate `mine`.
+template <int W, bool kOrdered>
+__device__ __forceinline__ Pick meet(const Team<W>& t, int j,
+                                     const Pick& mine) {
+  const int lane = threadIdx.x & 31;
+  const int p = j & 1;
+  Slots<W>& s = *t.s;
+  const int src = best_lane<kOrdered>(mine.dist, mine.idx);
+  Pick best;
+  if (t.warps == 1) {
+    best = from_lane(mine, src);
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if (lane == src) {
+      s.wdist[p][warp] = mine.dist;
+      s.widx[p][warp] = mine.idx;
+      s.wxyz[p][warp] = make_float4(mine.x, mine.y, mine.z, 0.0f);
+    }
+    named_barrier(t.bar, t.warps * 32);
+    if constexpr (kOrdered) {
+      best = from_records(s, p);
+    } else {
+      // interleaved points: lane w takes record w, ties by index
+      Pick r = none();
+      if (lane < W) {
+        const float4 v = s.wxyz[p][lane];
+        r = {s.wdist[p][lane], s.widx[p][lane], v.x, v.y, v.z};
+      }
+      best = from_lane(r, best_lane<false>(r.dist, r.idx));
+    }
+  }
+  if (t.ctas == 1) return best;
+
+  // the cluster: push this CTA's best to every CTA, wait for theirs
+  if (threadIdx.x < t.ctas) {
+    const uint32_t rec = t.peer.rec + p * uint32_t(sizeof(s.crec[0]));
+    const uint32_t z = t.peer.z + p * uint32_t(sizeof(s.cz[0]));
+    const uint32_t bar = t.peer.bar + p * uint32_t(sizeof(s.mbar[0]));
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+        "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(rec),
+        "r"(best.dist), "r"(best.idx), "r"(__float_as_int(best.x)),
+        "r"(__float_as_int(best.y)), "r"(bar)
+        : "memory");
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1,"
+        " [%2];" ::"r"(z),
+        "r"(__float_as_int(best.z)), "r"(bar)
+        : "memory");
+  }
+  if (threadIdx.x == 0) expect_bytes(&s.mbar[p], t.ctas * kRecordBytes);
+  // mbar[p] serves steps p, p + 2, ... from j = 1: this is its use
+  // (j - 1) / 2, whose phase has that parity
+  wait_parity(&s.mbar[p], ((j - 1) >> 1) & 1);
+  // lane r takes CTA r's record; ties by global index, never by rank (a
+  // 16-wide register tree over the records, as for the warps' above,
+  // was slower at both clustered path shapes on the card)
+  Pick c = none();
+  if (lane < t.ctas) {
+    const int4 v = s.crec[p][lane];
+    c = {v.x, v.y, __int_as_float(v.z), __int_as_float(v.w), s.cz[p][lane]};
+  }
+  return from_lane(c, best_lane<false>(c.dist, c.idx));
+}
+
+// A level's picks on their way out: lane j % 32 of the writer warp keeps
+// pick j, and the warp stores them 32 at a time.  A store to device
+// memory at every step would hold up the next barrier until it is
+// performed (the header above).
+struct Kept {
+  int* idx_out;
+  float* xyz_out;
+  bool writer;   // the warp that stores; every warp keeps
+  int idx;
+  float x, y, z;
+
+  __device__ void keep(int j, int last, int i, const float3& p) {
+    const int lane = threadIdx.x & 31;
+    if (lane == (j & 31)) {
+      idx = i;
+      x = p.x;
+      y = p.y;
+      z = p.z;
+    }
+    if (writer && ((j & 31) == 31 || j == last) && lane <= (j & 31)) {
+      const int k = (j & ~31) + lane;
+      idx_out[k] = idx;
+      xyz_out[3 * k + 0] = x;
+      xyz_out[3 * k + 1] = y;
+      xyz_out[3 * k + 2] = z;
+    }
+  }
+};
+
+// One FPS level: npoint picks over the set's points, the first being
+// point 0 of the level.  The writer warp stores the picks.
+template <int W, typename Set, typename Load>
+__device__ void run_level(Set& set, const Load& ld, int npoint, int* idx_out,
+                          float* xyz_out, bool writer, const Team<W>& team) {
+  float3 l = ld(0);
+  Kept kept{idx_out, xyz_out, writer, 0, 0.0f, 0.0f, 0.0f};
+  kept.keep(0, npoint - 1, 0, l);
+  for (int j = 1; j < npoint; ++j) {
+    const Pick p = meet<W, Set::kOrdered>(team, j, set.scan(l));
+    l = make_float3(p.x, p.y, p.z);
+    kept.keep(j, npoint - 1, p.idx, l);
+  }
+}
+
+// W warps a CTA; P points a thread in level 1 (0: streamed), P2 in
+// level 2.  Grid: batch * cluster CTAs, cluster CTAs a cloud (CTA
+// blockIdx.x % cluster is the cluster's rank).  scratch: (batch,
+// n + np1) ints when a level streams, else unused.
+template <int W, int P, int P2>
+__global__ void __launch_bounds__(W * 32)
+    fps_kernel(const float* __restrict__ xyz, int n, int np1, int np2,
+               int cluster, int* __restrict__ idx1, float* xyz1,
+               int* __restrict__ idx2, float* __restrict__ xyz2,
+               int* __restrict__ scratch) {
+  constexpr int kThreads = W * 32;
+  __shared__ Slots<W> slots;
+  const int rank = static_cast<int>(blockIdx.x) % cluster;
+  const int b = blockIdx.x / cluster;
+  const int warp = threadIdx.x >> 5;
   const float* cloud = xyz + static_cast<size_t>(b) * n * 3;
   int* i1 = idx1 + static_cast<size_t>(b) * np1;
   float* x1 = xyz1 + static_cast<size_t>(b) * np1 * 3;
+  int* row = scratch == nullptr
+                 ? nullptr
+                 : scratch + static_cast<size_t>(b) * (n + np1);
+  const int slice = (n + cluster - 1) / cluster;
+  const int begin = min(n, rank * slice);
+  const int end = min(n, begin + slice);
+
+  Team<W> team{&slots, W, 0, cluster, {}};
+  if (cluster > 1) {
+    if (threadIdx.x == 0) {
+      for (int q = 0; q < 2; ++q) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+                         smem_addr(&slots.mbar[q]))
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    if (threadIdx.x < cluster) {
+      team.peer = {peer_addr(&slots.crec[0][rank], threadIdx.x),
+                   peer_addr(&slots.cz[0][rank], threadIdx.x),
+                   peer_addr(&slots.mbar[0], threadIdx.x)};
+    }
+    // every CTA has started and initialised its mbarriers before any
+    // record is pushed to it
+    cluster_sync();
+  }
+  const bool writer = rank == 0 && warp == 0;
+  if constexpr (P == 0) {
+    StreamSet<Input> set{Input{cloud}, row, begin, end, kThreads};
+    set.init();
+    run_level(set, Input{cloud}, np1, i1, x1, writer, team);
+  } else {
+    RegSet<P> set;
+    set.load(Input{cloud}, begin, end, kThreads);
+    run_level(set, Input{cloud}, np1, i1, x1, writer, team);
+  }
+  // every record pushed to this CTA has arrived (it waited for each
+  // step's), so a CTA other than 0 may exit
+  if (np2 == 0 || rank != 0) return;
+
+  // level 2 in CTA 0 alone: after this barrier no warp reads level 1's
+  // records, and warp 0's picks are visible to the CTA
+  __syncthreads();
   int* i2 = idx2 + static_cast<size_t>(b) * np2;
   float* x2 = xyz2 + static_cast<size_t>(b) * np2 * 3;
-
-  if (V == kSmem) {
-    float* sx = smem;
-    float* sy = sx + n;
-    float* sz = sy + n;
-    float* mind = sz + n;
-    float* px = mind + n;
-    float* py = px + np1;
-    float* pz = py + np1;
-    float* red_v = pz + np1;
-    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
-    int* winner = red_i + kWarps;
-    for (int k = threadIdx.x; k < n; k += kThreads) {
-      sx[k] = cloud[3 * k + 0];
-      sy[k] = cloud[3 * k + 1];
-      sz[k] = cloud[3 * k + 2];
+  const bool regs = np1 <= kThreads * P2;
+  const int warps = regs ? min(W, (np1 + 32 * P2 - 1) / (32 * P2)) : W;
+  if (threadIdx.x == 0) {
+    // the idle warps' records lose every step (the first step's barrier
+    // orders these stores before any read)
+    for (int q = 0; q < 2; ++q) {
+      for (int w = warps; w < W; ++w) {
+        slots.wdist[q][w] = -1;
+        slots.widx[q][w] = INT_MAX;
+      }
     }
-    __syncthreads();
-    fps_level<kThreads>(Planes{sx, sy, sz}, mind, n, np1, i1, x1, px, py, pz,
-                        red_v, red_i, winner);
-    fps_level<kThreads>(Planes{px, py, pz}, mind, np1, np2, i2, x2, nullptr,
-                        nullptr, nullptr, red_v, red_i, winner);
+  }
+  if (warp >= warps) return;
+  const Team<W> team2{&slots, warps, 1, 1, {}};
+  if (regs) {
+    RegSet<P2> set;
+    set.load(Written{x1}, 0, np1, warps * 32);
+    run_level(set, Written{x1}, np2, i2, x2, warp == 0, team2);
   } else {
-    float* mind = V == kSmemState ? smem : scratch + static_cast<size_t>(b) * n;
-    float* red_v = V == kSmemState ? smem + n : smem;
-    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
-    int* winner = red_i + kWarps;
-    fps_level<kThreads>(Rows{cloud}, mind, n, np1, i1, x1, nullptr, nullptr,
-                        nullptr, red_v, red_i, winner);
-    // level 2 reads the picks back from xyz1; the barrier that ends
-    // level 1 makes thread 0's writes visible to the block
-    fps_level<kThreads>(Rows{x1}, mind, np1, np2, i2, x2, nullptr, nullptr,
-                        nullptr, red_v, red_i, winner);
+    StreamSet<Written> set{Written{x1}, row + n, 0, np1, kThreads};
+    set.init();
+    run_level(set, Written{x1}, np2, i2, x2, warp == 0, team2);
   }
 }
 
-// One level alone: the picks of each cloud and their coordinates.  The
-// kSmem layout is fps2_kernel's with no level-2 capture (np1 = 0).
-template <int V>
-__global__ void __launch_bounds__(threads_of<V>())
-    fps_kernel(const float* __restrict__ xyz, int n, int npoint,
-               int* __restrict__ idx, float* __restrict__ new_xyz,
-               float* __restrict__ scratch) {
-  constexpr int kThreads = threads_of<V>();
-  constexpr int kWarps = kThreads / 32;
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const float* cloud = xyz + static_cast<size_t>(b) * n * 3;
-  int* i1 = idx + static_cast<size_t>(b) * npoint;
-  float* x1 = new_xyz + static_cast<size_t>(b) * npoint * 3;
-
-  if (V == kSmem) {
-    float* sx = smem;
-    float* sy = sx + n;
-    float* sz = sy + n;
-    float* mind = sz + n;
-    float* red_v = mind + n;
-    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
-    int* winner = red_i + kWarps;
-    for (int k = threadIdx.x; k < n; k += kThreads) {
-      sx[k] = cloud[3 * k + 0];
-      sy[k] = cloud[3 * k + 1];
-      sz[k] = cloud[3 * k + 2];
-    }
-    __syncthreads();
-    fps_level<kThreads>(Planes{sx, sy, sz}, mind, n, npoint, i1, x1, nullptr,
-                        nullptr, nullptr, red_v, red_i, winner);
-  } else {
-    float* mind = V == kSmemState ? smem : scratch + static_cast<size_t>(b) * n;
-    float* red_v = V == kSmemState ? smem + n : smem;
-    int* red_i = reinterpret_cast<int*>(red_v + kWarps);
-    int* winner = red_i + kWarps;
-    fps_level<kThreads>(Rows{cloud}, mind, n, npoint, i1, x1, nullptr,
-                        nullptr, nullptr, red_v, red_i, winner);
-  }
-}
-
-// Raise a kernel's dynamic shared memory limit when it needs more than
-// the default 48 KB.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <int V>
-int launch(const float* xyz, int batch, int n, int np1, int np2, int* idx1,
-           float* xyz1, int* idx2, float* xyz2, float* scratch,
+template <int W, int P, int P2>
+int launch(int cluster, const float* xyz, int batch, int n, int np1, int np2,
+           int* idx1, float* xyz1, int* idx2, float* xyz2, int* scratch,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<V>(n, np1);
-  const cudaError_t err = allow_smem(fps2_kernel<V>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps2_kernel<V><<<batch, threads_of<V>(), smem, stream>>>(
-      xyz, n, np1, np2, idx1, xyz1, idx2, xyz2, scratch);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int V>
-int launch_single(const float* xyz, int batch, int n, int npoint, int* idx,
-                  float* new_xyz, float* scratch, cudaStream_t stream) {
-  const size_t smem = smem_bytes<V>(n, 0);
-  const cudaError_t err = allow_smem(fps_kernel<V>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<V><<<batch, threads_of<V>(), smem, stream>>>(
-      xyz, n, npoint, idx, new_xyz, scratch);
-  return static_cast<int>(cudaGetLastError());
+  if (P > 0 && (n + cluster - 1) / cluster > W * 32 * P) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool streams = P == 0 || (np2 > 0 && np1 > W * 32 * P2);
+  if (streams && scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = fps_kernel<W, P, P2>;
+  if (cluster > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(W * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, np1, np2,
+                                             cluster, idx1, xyz1, idx2, xyz2,
+                                             scratch);
+  // read (and clear) the launch's error even when the call itself failed
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
+// The variants, in ops/kernels/fps.py::VARIANTS' order:
+//   X(id, warps W, level-1 points a thread P (0: streamed),
+//     level-2 points a thread P2)
+#define FPS_VARIANTS(X) \
+  X(0, 1, 4, 4)         \
+  X(1, 1, 16, 16)       \
+  X(2, 4, 8, 8)         \
+  X(3, 4, 16, 16)       \
+  X(4, 32, 0, 4)
+
 extern "C" {
 
-// Dynamic shared memory of `variant` (0 kSmem, 1 kSmemState, 2 kGlobal).
-size_t fps2_smem_bytes(int variant, int n, int np1) {
-  switch (variant) {
-    case kSmem:
-      return smem_bytes<kSmem>(n, np1);
-    case kSmemState:
-      return smem_bytes<kSmemState>(n, np1);
-    default:
-      return smem_bytes<kGlobal>(n, np1);
+// Launches `batch * cluster` CTAs on `stream`, `cluster` a cloud (1, 2,
+// 4, 8 or 16); np2 = 0 runs level 1 alone (idx2, xyz2 unused).  scratch:
+// (batch, n + np1) ints when a level streams.  Returns the launch's
+// error (cudaGetLastError()), or cudaErrorInvalidValue for an unknown
+// variant or cluster, a cloud the variant does not hold, or a missing
+// scratch.
+int fps_launch(int variant, int cluster, const float* xyz, int batch, int n,
+               int np1, int np2, int* idx1, float* xyz1, int* idx2,
+               float* xyz2, int* scratch, cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Launches one block per cloud on `stream`; scratch is (batch, n) floats
-// for variant 2 and may be null otherwise.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for an unknown variant.
-int fps2_launch(int variant, const float* xyz, int batch, int n, int np1,
-                int np2, int* idx1, float* xyz1, int* idx2, float* xyz2,
-                float* scratch, cudaStream_t stream) {
   switch (variant) {
-    case kSmem:
-      return launch<kSmem>(xyz, batch, n, np1, np2, idx1, xyz1, idx2, xyz2,
-                           scratch, stream);
-    case kSmemState:
-      return launch<kSmemState>(xyz, batch, n, np1, np2, idx1, xyz1, idx2,
-                                xyz2, scratch, stream);
-    case kGlobal:
-      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<kGlobal>(xyz, batch, n, np1, np2, idx1, xyz1, idx2, xyz2,
-                             scratch, stream);
+#define FPS_CASE(id, W, P, P2)                                              \
+  case id:                                                                  \
+    return launch<W, P, P2>(cluster, xyz, batch, n, np1, np2, idx1, xyz1,   \
+                            idx2, xyz2, scratch, stream);
+    FPS_VARIANTS(FPS_CASE)
+#undef FPS_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The single level: one block per cloud on `stream`, the variant's
-// shared memory being fps2_smem_bytes(variant, n, 0); scratch as for
-// fps2_launch.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for an unknown variant.
-int fps_launch(int variant, const float* xyz, int batch, int n, int npoint,
-               int* idx, float* new_xyz, float* scratch,
-               cudaStream_t stream) {
-  switch (variant) {
-    case kSmem:
-      return launch_single<kSmem>(xyz, batch, n, npoint, idx, new_xyz,
-                                  scratch, stream);
-    case kSmemState:
-      return launch_single<kSmemState>(xyz, batch, n, npoint, idx, new_xyz,
-                                       scratch, stream);
-    case kGlobal:
-      if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return launch_single<kGlobal>(xyz, batch, n, npoint, idx, new_xyz,
-                                    scratch, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-const char* fps2_error_string(int code) {
+const char* fps_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -8,7 +8,8 @@ is non-zero):
 
 0. Require a CUDA device; print the card (nvidia-smi name and power
    limit) and the torch / CUDA / nvcc versions.
-1. Build the CUDA sources from csrc/, one nvcc each, all at once.
+1. Build the CUDA sources from csrc/, one nvcc each, all at once; print
+   each kernel's registers, shared memory and spills (ptxas -v).
 2. Hold each of the eleven kernels against its plain PyTorch version at
    the shapes its paths give it: the serving path's (B=16, N=2048), the
    large-cloud path's (B=4, N=32768), the N-level path's (B=8,
@@ -20,7 +21,11 @@ is non-zero):
    out of the cloud); 3-NN distances within 1e-6 relative (B7 equal;
    B9's within one key quantum, with the entries that differ counted).
    B9 is also read against K3 as scripts/ab_threenn_packed.py reads the
-   TPU kernels, with the bounds of tests/test_pallas_tpu.py.  Device
+   TPU kernels, with the bounds of tests/test_pallas_tpu.py.  Both FPS
+   kernels also run at every cluster size on tie-heavy grid clouds and
+   ragged ones (all outputs equal), and each FPS shape prints its plan
+   (variant, cluster size C), µs per pick and step floor (the same
+   launch on a cloud of one point per thread).  Device
    time of each, median of 20 CUDA-event-timed calls (`timing.
    cuda_time_ms`; of 5 for the plain versions, which are no yardstick
    and, for FPS, take tens of ms of host time a call); its bound from
@@ -136,6 +141,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_lines(log_text: str) -> list:
+    """One line per kernel of an `nvcc -Xptxas -v` log: the kernel's
+    entry name (mangled, its template arguments after "I"), then its
+    registers, shared memory and spills, all as ptxas printed them."""
+    import re
+
+    lines = []
+    for ln in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            lines.append(entry.group(1))
+        elif lines and ("registers" in ln or "spill" in ln):
+            lines[-1] += "; " + ln.split(":", 1)[-1].strip()
+    return lines
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -211,48 +232,123 @@ def check_equal(name: str, got, want) -> float:
                for g, w in zip(got, want))
 
 
+def fps_reading(kernel_fn, plain_fn, B, picks, flops, plan, outputs):
+    """Times, bound and step floor of one FPS launch: (times, bounds,
+    shape label, log text, µs per pick, floor µs per pick)."""
+    from articulated_pose_tpu_torch.ops.kernels.fps import step_floor
+
+    t = time_both(kernel_fn, plain_fn)
+    b = bound(flops, *outputs)
+    floor = step_floor(B, *plan)
+    us = t[0] * 1e3 / picks
+    text = (f"{plan[0]} C={plan[1]}, {us:.4f} us a pick, step floor "
+            f"{floor:.4f} us a pick; {t[4]}; {bound_note(b)}")
+    return t, b, text, us, floor
+
+
+def fps_result(err, readings):
+    """The JSON entry of an FPS kernel: kernel_result's keys, plus each
+    shape's plan, µs per pick and step floor."""
+    times, bounds, shapes, plans, us, floors = zip(*readings)
+    return dict(kernel_result(err, list(times), list(shapes), list(bounds)),
+                plans=[f"{v} C={c}" for v, c in plans], us_per_pick=list(us),
+                floor_us_per_pick=list(floors))
+
+
 def compare_fps(clouds):
     """K1 at each (label, cloud): N -> 512 -> 128, as PointNet2Backbone
     calls it.  Returns the JSON entry and each cloud's (xyz1, xyz2)."""
     from articulated_pose_tpu_torch.ops.kernels import fps
 
-    err, times, shapes, bounds, picks = 0.0, [], [], [], {}
+    err, readings, picks = 0.0, [], {}
     for label, cloud in clouds:
         B, N, _ = cloud.shape
         got = fps.fps2(cloud, 512, 128)
         err = max(err, check_equal("fps2", got,
                                    fps.fps2_plain(cloud, 512, 128)))
-        t = time_both(lambda: fps.fps2(cloud, 512, 128),
-                      lambda: fps.fps2_plain(cloud, 512, 128))
-        bounds.append(bound(B * (511 * N + 127 * 512) * FPS_FLOPS, cloud,
-                            *got))
-        shape = f"B{B} N{N}->512->128 ({fps.fps2_variant(N, 512)})"
-        log(f"[kernels] fps2 {shape}: indices and coordinates equal; {t[4]}; "
-            f"{bound_note(bounds[-1])}")
-        times.append(t)
-        shapes.append(shape)
+        plan = fps.fps_plan(B, N, 512)
+        t, b, text, us, floor = fps_reading(
+            lambda: fps.fps2(cloud, 512, 128),
+            lambda: fps.fps2_plain(cloud, 512, 128), B, 512 + 128,
+            B * (511 * N + 127 * 512) * FPS_FLOPS, plan, (cloud, *got))
+        shape = f"B{B} N{N}->512->128"
+        log(f"[kernels] fps2 {shape}: indices and coordinates equal; {text}")
+        readings.append((t, b, shape, plan, us, floor))
         picks[label] = (got[1], got[3])
-    return kernel_result(err, times, shapes, bounds), picks
+    return fps_result(err, readings), picks
 
 
 def compare_fps_single(cases):
     """B2 at each (cloud, npoint) of its paths.  Returns the JSON entry."""
     from articulated_pose_tpu_torch.ops.kernels import fps
 
-    err, times, shapes, bounds = 0.0, [], [], []
+    err, readings = 0.0, []
     for cloud, npoint in cases:
         B, N, _ = cloud.shape
         got = fps.fps(cloud, npoint)
         err = max(err, check_equal("fps", got, fps.fps_plain(cloud, npoint)))
-        t = time_both(lambda: fps.fps(cloud, npoint),
-                      lambda: fps.fps_plain(cloud, npoint))
-        bounds.append(bound(B * (npoint - 1) * N * FPS_FLOPS, cloud, *got))
-        shape = f"B{B} N{N}->{npoint} ({fps.fps_variant(N)})"
-        log(f"[kernels] fps {shape}: indices and coordinates equal; {t[4]}; "
-            f"{bound_note(bounds[-1])}")
-        times.append(t)
-        shapes.append(shape)
-    return kernel_result(err, times, shapes, bounds)
+        plan = fps.fps_plan(B, N, npoint)
+        t, b, text, us, floor = fps_reading(
+            lambda: fps.fps(cloud, npoint),
+            lambda: fps.fps_plain(cloud, npoint), B, npoint,
+            B * (npoint - 1) * N * FPS_FLOPS, plan, (cloud, *got))
+        shape = f"B{B} N{N}->{npoint}"
+        log(f"[kernels] fps {shape}: indices and coordinates equal; {text}")
+        readings.append((t, b, shape, plan, us, floor))
+    return fps_result(err, readings)
+
+
+def grid_cloud(rng, B: int, N: int, side: int, dev):
+    """Points on a coarse integer grid scaled by 1/8: exact duplicates and
+    exactly equal distances, every product and sum exact."""
+    import torch
+
+    return torch.from_numpy((rng.randint(0, side, (B, N, 3)) * 0.125)
+                            .astype(np.float32)).to(dev)
+
+
+def fps_ties_and_slices(dev):
+    """Both FPS kernels forced through every cluster size on tie-heavy grid
+    clouds (equal distances in different warps and CTAs) and a ragged one
+    (N = 3001, no multiple of C x threads; fewer points than C x threads
+    at N = 100), each in the smallest register variant that holds it (where
+    one does) and in the streamed one: every output equal to the plain
+    version's."""
+    from articulated_pose_tpu_torch.ops.kernels import fps
+
+    rng = np.random.RandomState(11)
+    clouds = {"grid side 4": grid_cloud(rng, 4, 4096, 4, dev),
+              "grid side 16": grid_cloud(rng, 4, 4096, 16, dev),
+              "ragged N=3001": torch_cloud(rng, 3, 3001, dev),
+              "ragged N=100": torch_cloud(rng, 3, 100, dev)}
+    by_capacity = sorted((v for v in fps.VARIANTS if fps.capacity(v)),
+                         key=fps.capacity)
+    launches = 0
+    for label, cloud in clouds.items():
+        N = cloud.shape[1]
+        np1, np2, single = min(N, 512), min(N, 128), min(N, 300)
+        want2 = fps.fps2_plain(cloud, np1, np2)
+        want1 = fps.fps_plain(cloud, single)
+        for cluster in fps.CLUSTERS:
+            small = next((v for v in by_capacity if fps.fits(v, N, cluster)),
+                         "stream")
+            for variant in dict.fromkeys((small, "stream")):
+                check_equal(f"fps2 {label} {variant} C={cluster}",
+                            fps.launch(fps.KERNEL, cloud, np1, np2, variant,
+                                       cluster), want2)
+                check_equal(f"fps {label} {variant} C={cluster}",
+                            fps.launch(fps.SINGLE_KERNEL, cloud, single, 0,
+                                       variant, cluster)[:2], want1)
+                launches += 2
+    log(f"[kernels] fps2 and fps on {', '.join(clouds)} at C in "
+        f"{fps.CLUSTERS}, smallest register variant and streamed: "
+        f"{launches} launches, every output equal to the plain version's")
+
+
+def torch_cloud(rng, B: int, N: int, dev):
+    import torch
+
+    return torch.from_numpy(rng.rand(B, N, 3).astype(np.float32)).to(dev)
 
 
 def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
@@ -460,6 +556,7 @@ def compare_kernels(dev):
         np.float32)).to(dev) for n in (N_POINTS, 512, 128))
     results["fps"] = compare_fps_single([(cloud, 512)] + chain
                                         + [(P64, 512), (Q1, 128)])
+    fps_ties_and_slices(dev)
 
     # B8 at SA1 and SA2, a few queries moved out of the cloud so that
     # the zero-hit fallback runs; every output equal
@@ -1057,9 +1154,9 @@ def main() -> int:
     seconds = build_all(KERNELS.values())
     logs = {k.source: k.build_log() for k in KERNELS.values()}
     for source, log_text in sorted(logs.items()):
-        ptxas = [ln.strip() for ln in log_text.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {source}: {seconds[source]:.2f} s; " + " | ".join(ptxas))
+        log(f"[build] {source}: {seconds[source]:.2f} s")
+        for line in ptxas_lines(log_text):
+            log(f"[build]   {line}")
     log(f"[build] all sources in parallel: {time.perf_counter() - t0:.2f} s")
 
     with phase("2 kernels"):

@@ -11,8 +11,9 @@ need not have.)
 The kernels repeat the plain versions' arithmetic operation for
 operation with round-to-nearest intrinsics, so indices and counts must
 be equal, not just close.  Shapes are the serving path's at B=16 and
-the large-cloud path's (N=32768) at B=2-4; single-level FPS also in
-each of its variants (N up to 100003); the rank-select ball query and
+the large-cloud path's (N=32768) at B=1-4; FPS also at every cluster
+size, on tie-heavy grid clouds, ragged slices and at each variant's
+boundary (N up to 100003); the rank-select ball query and
 the packed 3-NN at the stage profiler's B=64, the streaming 3-NN at
 (4, 2048 <- 16384).
 """
@@ -50,13 +51,14 @@ def test_fps2_matches_plain(dev):
         assert torch.equal(g, w)
 
 
-# above ~14k points the cloud leaves shared memory, above ~57k the state
-@pytest.mark.parametrize("N,variant", [(20000, "smem_state"),
-                                       (32768, "smem_state"),
-                                       (100003, "global")])
-def test_fps2_large_clouds_match_plain(dev, N, variant):
+# the plan splits a large cloud over a cluster; N = 100003 streams over
+# 16 CTAs
+@pytest.mark.parametrize("N,plan", [(20000, ("w4p16", 16)),
+                                    (32768, ("w4p16", 16)),
+                                    (100003, ("stream", 16))])
+def test_fps2_large_clouds_match_plain(dev, N, plan):
     xyz = _cloud(7, 2, N, dev)
-    assert fps.fps2_variant(N, 512) == variant
+    assert fps.fps_plan(2, N, 512) == plan
     got = fps.fps2(xyz, 512, 128)
     torch.cuda.synchronize()
     want = fps.fps2_plain(xyz, 512, 128)
@@ -146,12 +148,15 @@ def test_three_nn_matches_plain(dev, N, M):
     assert torch.equal(d, dp)
 
 
-# single-level FPS (B2), in each of the three variants
-@pytest.mark.parametrize("N,variant", [(2048, "smem"), (20000, "smem_state"),
-                                       (100003, "global")])
-def test_fps_matches_plain(dev, N, variant):
-    xyz = _cloud(12, 2 if N > 2048 else 16, N, dev)
-    assert fps.fps_variant(N) == variant
+# single-level FPS (B2) at the plan's choice for the path shapes and
+# for N = 100003
+@pytest.mark.parametrize("N,plan", [(2048, ("w4p16", 1)),
+                                    (20000, ("w4p16", 16)),
+                                    (100003, ("stream", 16))])
+def test_fps_matches_plain(dev, N, plan):
+    B = 2 if N > 2048 else 16
+    xyz = _cloud(12, B, N, dev)
+    assert fps.fps_plan(B, N, 512) == plan
     before = KERNELS["fps"].launches
     got = fps.fps(xyz, 512)
     torch.cuda.synchronize()
@@ -159,6 +164,105 @@ def test_fps_matches_plain(dev, N, variant):
     want = fps.fps_plain(xyz, 512)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _grid_cloud(seed, B, N, side, dev):
+    """Points on a coarse integer grid (exact duplicates, exactly equal
+    distances), scaled by a power of two so the arithmetic stays exact."""
+    g = np.random.RandomState(seed).randint(0, side, (B, N, 3))
+    return torch.from_numpy((g * 0.125).astype(np.float32)).to(dev)
+
+
+# the register variants, smallest first
+BY_CAPACITY = sorted((v for v in fps.VARIANTS if fps.capacity(v)),
+                     key=fps.capacity)
+
+
+def _fitting(N, cluster):
+    """The smallest register variant that holds N points at `cluster`."""
+    return next((v for v in BY_CAPACITY if fps.fits(v, N, cluster)),
+                "stream")
+
+
+def _check_launch(xyz, np1, np2, variant, cluster):
+    kernel = fps.KERNEL if np2 else fps.SINGLE_KERNEL
+    before = kernel.launches
+    got = fps.launch(kernel, xyz, np1, np2, variant, cluster)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    if np2:
+        want = fps.fps2_plain(xyz, np1, np2)
+    else:
+        got, want = got[:2], fps.fps_plain(xyz, np1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# every cluster size, forced: N = 3001 is ragged at every C (no multiple
+# of C x threads), and the register variant and the streamed one both
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_fps_every_cluster_size(dev, cluster, streamed):
+    xyz = _cloud(30, 3, 3001, dev)
+    variant = "stream" if streamed else _fitting(3001, cluster)
+    _check_launch(xyz, 512, 128, variant, cluster)
+    _check_launch(xyz, 700, 0, variant, cluster)
+
+
+# ties: a coarse grid puts equal distances in different warps and CTAs;
+# side 4 leaves 64 positions, so most picks are ties at distance 0
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("side", [4, 16])
+def test_fps_tie_heavy_grid(dev, cluster, side):
+    xyz = _grid_cloud(31, 4, 4096, side, dev)
+    _check_launch(xyz, 512, 128, _fitting(4096, cluster), cluster)
+    _check_launch(xyz, 300, 0, "stream", cluster)
+
+
+# fewer points than C x threads: whole CTAs and warps hold nothing
+@pytest.mark.parametrize("N,variant,cluster", [(100, "w4p8", 16),
+                                               (40, "w4p16", 4),
+                                               (33, "w1p4", 2),
+                                               (5, "stream", 16)])
+def test_fps_ragged_small_clouds(dev, N, variant, cluster):
+    xyz = _cloud(32, 3, N, dev)
+    _check_launch(xyz, N, min(N, 7), variant, cluster)
+    _check_launch(xyz, N // 2 + 1, 0, variant, cluster)
+
+
+def test_fps_edge_pick_counts(dev):
+    xyz = _cloud(33, 2, 2048, dev)
+    for fn, args in ((fps.fps, (1,)), (fps.fps2, (1, 1)),
+                     (fps.fps2, (2048, 128)), (fps.fps, (2048,))):
+        got = fn(xyz, *args)
+        plain = fps.fps_plain if fn is fps.fps else fps.fps2_plain
+        for g, w in zip(got, plain(xyz, *args)):
+            assert torch.equal(g, w)
+    # np1 = N at 16 CTAs: level 2 holds more than its registers, streams
+    assert fps.streams("w1p4", 2048, 128)
+    _check_launch(xyz, 2048, 128, "w1p4", 16)
+
+
+def test_fps2_one_large_cloud(dev):
+    xyz = _cloud(34, 1, 32768, dev)
+    assert fps.fps_plan(1, 32768, 512)[1] == 16
+    got = fps.fps2(xyz, 512, 128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, fps.fps2_plain(xyz, 512, 128)):
+        assert torch.equal(g, w)
+
+
+# each register variant at exactly its capacity a CTA, and one point
+# past it, which the wrapper refuses
+@pytest.mark.parametrize("variant", [v for v in fps.VARIANTS
+                                     if v != "stream"])
+def test_fps_variant_boundaries(dev, variant):
+    cap = fps.capacity(variant)
+    xyz = _cloud(35, 2, 2 * cap + 1, dev)
+    _check_launch(xyz[:, :cap].contiguous(), min(cap, 256), 0, variant, 1)
+    _check_launch(xyz[:, :2 * cap].contiguous(), 256, 64, variant, 2)
+    with pytest.raises(ValueError, match="holds"):
+        fps.launch(fps.SINGLE_KERNEL, xyz, 8, 0, variant, 2)
 
 
 # the bucket tier (B8) at the serving shapes: SA1 2048 -> 512 (W = 32),
