@@ -4,11 +4,17 @@ Port of the `articulated_pose_tpu.config.NetworkConfig` fields that the
 forward + pose-fit path reads, with the same names and defaults,
 including the mixed-precision policy knobs (`head_compute_dtype`,
 `pool_compute_dtype`, `act_compute_dtype`, `f32_stages`; docs/dtype_ab.md).
+
+`load_config` reads the JAX package's config files (`cfg/*.yml`) with a
+small reader of its own (`read_flat_yaml`), so it needs no PyYAML, and
+it refuses a key that neither package knows, as JAX's `load_config`
+does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional
 
 from articulated_pose_tpu_torch.registry import CategorySpec, get_category
@@ -19,6 +25,24 @@ _POLICY_DTYPES = ("head_compute_dtype", "pool_compute_dtype",
 # the stages f32_stages may pin (config.py:152): the presets' two-level
 # backbone
 F32_STAGES = ("sa1", "sa2", "sa_global", "fp1", "fp2", "fp3", "fc1")
+# every field of the JAX package's NetworkConfig (config.py:19-118), in
+# its order: a config file may name any of them, and load_config ignores
+# those the port does not read; any other key is refused, as there
+JAX_FIELDS = (
+    "nn_name", "category", "nocs_type", "experiment_dir", "n_max_parts",
+    "num_points", "pred_joint", "pred_joint_ind", "early_split_nocs",
+    "dropout_rate", "backbone_preset", "compute_dtype", "head_compute_dtype",
+    "pool_compute_dtype", "act_compute_dtype", "f32_stages", "use_pallas",
+    "ball_query_packed", "miou_loss_multiplier", "nocs_loss_multiplier",
+    "gocs_loss_multiplier", "offset_loss_multiplier",
+    "orient_loss_multiplier", "index_loss_multiplier",
+    "total_loss_multiplier", "coord_regress_loss", "batch_size", "n_epochs",
+    "init_learning_rate", "decay_step", "decay_rate", "bn_decay_step",
+    "val_interval", "snapshot_interval", "val_prediction_n_keep",
+    "writer_start_step", "data_root", "num_expr", "train_data_add_noise",
+    "fixed_order_val", "thres_r", "ransac_niter_part", "ransac_niter_joint",
+    "ransac_inlier_th", "lm_iters", "use_gt_joint_association",
+    "mesh_shape", "seed")
 
 
 @dataclasses.dataclass
@@ -88,19 +112,165 @@ class NetworkConfig:
         return dataclasses.replace(self, **kw)
 
 
+# the YAML 1.1 scalars PyYAML resolves (its resolver.py), as far as the
+# JAX configs use them; anything else unquoted is a plain string
+_BOOLS = {w: v for v, words in ((True, "yes true on"), (False, "no false off"))
+          for word in words.split() for w in (word, word.title(),
+                                               word.upper())}
+_NULLS = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
+# decimal floats with a point or an exponent, `1e-3` included (PyYAML
+# reads that one as a string; the reader takes the number it means)
+_FLOAT = re.compile(r"[-+]?(([0-9][0-9_]*)?\.[0-9_]*([eE][-+]?[0-9]+)?"
+                    r"|[0-9][0-9_]*[eE][-+]?[0-9]+)")
+_SPECIAL_FLOATS = {".inf": float("inf"), "+.inf": float("inf"),
+                   "-.inf": float("-inf"), ".nan": float("nan")}
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*)\s*:(\s+(.*))?$")
+# a plain scalar may not start with YAML's indicators: flow collections,
+# anchors, aliases, tags, block scalars, directives, reserved characters
+_INDICATORS = "[]{}&*!|>%@`,?:-#"
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a trailing `# ...` comment outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _scalar(text: str, where: str):
+    """One scalar of a flat config: quoted or bare string, bool, int,
+    float or null, resolved as PyYAML resolves it."""
+    text = text.strip()
+    if text and text[0] in "'\"":
+        quote = text[0]
+        if len(text) < 2 or text[-1] != quote:
+            raise ValueError(f"{where}: unterminated string {text!r}")
+        body = text[1:-1]
+        if quote == "'":
+            if "'" in body.replace("''", ""):
+                raise ValueError(f"{where}: stray quote in {text!r}")
+            return body.replace("''", "'")
+        if "\\" in body or '"' in body:
+            raise ValueError(f"{where}: escapes in {text!r} are not read")
+        return body
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if _INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if text.lower() in _SPECIAL_FLOATS:
+        return _SPECIAL_FLOATS[text.lower()]
+    if _FLOAT.fullmatch(text) and any(c.isdigit() for c in text):
+        return float(text.replace("_", ""))
+    # what starts like a number but is none of the above (octal, hex,
+    # sexagesimal, a date) PyYAML reads as something else: refused
+    if (text[0] in _INDICATORS or ": " in text or " #" in text
+            or re.match(r"[-+]?\.?[0-9]", text)):
+        raise ValueError(f"{where}: cannot read {text!r} as a scalar of a "
+                         "flat config")
+    return text
+
+
+def _flow_list(text: str, where: str) -> list:
+    """`[a, 'b', 1]`: a flow list of scalars (no nesting)."""
+    body = text[1:-1]
+    items, item, quote = [], "", None
+    for ch in body:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[]{}":
+            raise ValueError(f"{where}: nested collection in {text!r}")
+        elif ch == ",":
+            items.append(item)
+            item = ""
+            continue
+        item += ch
+    if quote:
+        raise ValueError(f"{where}: unterminated string in {text!r}")
+    items.append(item)
+    if len(items) == 1 and not items[0].strip():
+        return []
+    if not all(i.strip() for i in items):
+        raise ValueError(f"{where}: empty item in {text!r}")
+    return [_scalar(i, where) for i in items]
+
+
+def read_flat_yaml(text: str, name: str = "<config>") -> dict:
+    """Parse the YAML the JAX configs are written in: a flat mapping of
+    `key: value` lines, each value a scalar (quoted or bare string, bool,
+    int, float, null), a `[a, b]` flow list, or a block list of `- a`
+    lines under an empty `key:`.  Comments and blank lines are skipped.
+    Anything else (a nested mapping, a flow mapping, anchors, tags,
+    multi-line scalars, a repeated key) raises ValueError: the reader
+    does not guess.  Needs no PyYAML, which the card host lacks."""
+    out = {}
+    block = None                        # the key whose `- item` lines follow
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{n}"
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"{where}: tab in indentation")
+        stripped = line.strip()
+        if stripped == "-" or stripped.startswith("- "):
+            if block is None:
+                raise ValueError(f"{where}: list item outside a list")
+            item = stripped[1:].strip()
+            if not item or item[0] in "[{" or _KEY.match(item):
+                raise ValueError(f"{where}: nested item {item!r}")
+            if out[block] is None:
+                out[block] = []
+            out[block].append(_scalar(item, where))
+            continue
+        if line[0] in " ":
+            raise ValueError(f"{where}: indented line {stripped!r}: not a "
+                             "flat mapping")
+        block = None
+        m = _KEY.match(line)
+        if not m:
+            raise ValueError(f"{where}: expected `key: value`, got {line!r}")
+        key, value = m.group(1), (m.group(3) or "").strip()
+        if key in out:
+            raise ValueError(f"{where}: repeated key {key!r}")
+        if not value:
+            out[key] = None             # null, unless `- item` lines follow
+            block = key
+        elif value[0] == "[" and value[-1] == "]":
+            out[key] = _flow_list(value, where)
+        else:
+            out[key] = _scalar(value, where)
+    return out
+
+
 def load_config(path: Optional[str] = None, **overrides) -> NetworkConfig:
-    """Load a NetworkConfig from a flat YAML mapping, applying overrides.
+    """Load a NetworkConfig from a JAX config file (a flat YAML mapping,
+    read by `read_flat_yaml`), applying overrides.
 
     Keys of the JAX package's config that serving does not read are
-    ignored, so one YAML file serves both packages.
+    ignored, so one file serves both packages; a key of neither raises
+    ValueError, from the file or from the overrides, as JAX does
+    (config.py:141-144).
     """
     fields = {}
     if path is not None:
-        import yaml
-
         with open(path) as f:
-            fields.update(yaml.safe_load(f) or {})
+            fields.update(read_flat_yaml(f.read(), str(path)))
     fields.update(overrides)
+    unknown = set(fields) - set(JAX_FIELDS)
+    if unknown:
+        raise ValueError(f"unknown config keys: {sorted(unknown)}")
     known = {f.name for f in dataclasses.fields(NetworkConfig)}
     cfg = NetworkConfig(**{k: v for k, v in fields.items() if k in known})
     if cfg.nocs_type == "npcs":

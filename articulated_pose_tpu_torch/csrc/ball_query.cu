@@ -1,4 +1,4 @@
-// Ball query: three entry points over one warp-per-query scan.
+// Ball query: three entry points over one first-S scan.
 //
 // 1. ball_query_group_launch (K2) replaces the TPU kernel
 //    articulated_pose_tpu/ops/pallas/ball_query_butterfly.py::
@@ -28,122 +28,439 @@
 // at nsample.
 //
 // What bounds it on the card: each query scans its cloud in index order
-// until nsample hits are in, so the work is the scanned prefix (about
-// 12 B of point data and ~15 FLOPs per scanned point), served from L1/L2
-// because every query of a cloud reads the same points.  The TPU kernels
-// routed a whole (N, BM) hit plane through a butterfly network, or
-// (stream) swept N in VMEM-sized tiles with triangular-matmul ranks,
-// because a vector unit cannot stop early; on the card the
-// order-preserving compaction is a warp primitive: one warp per query
-// takes 32 points per step, a __ballot_sync of the hit test, __popc
-// prefix ranks for the slots, and stops as soon as nsample hits are in.
-// Nothing here grows with N except the scan, so the streaming tier needs
-// no tiling.  The packed tier's 3 x 10-bit packing only shrank the TPU's
-// butterfly planes; here a per-cloud prologue writes the dequantised
-// coordinates once (B blocks, one pass over the cloud) and the scan
-// copies them out in place of the exact ones.
+// until nsample hits are in, ~9 FLOPs per scanned (query, point) pair,
+// and writes its nsample slots (idx, and 12 B a slot of grouped rows,
+// the largest byte count of the call at the bench shape).  The first
+// design, one warp per query scanning device memory, spent its time
+// elsewhere: every query re-read its cloud as three strided 4-byte loads
+// a point and recomputed |p|^2; each 32-point step waited on its own
+// loads, since the loop's exit depends on the step's ballot; every hit
+// paid two population counts (a quarter-rate instruction) for its slot;
+// the grouped rows left as scattered 4-byte stores; the packed tier's
+// quantiser was a launch of its own.  The design here:
+//   - A CTA of 8 warps answers 8 G queries of one cloud, and stages the
+//     cloud in shared memory as float4 (x, y, z, |p|^2), |p|^2 once a
+//     point in sqnorm's operation order, so a point is one 16-byte shared
+//     load for all the CTA's queries.  A cloud that fits is staged whole;
+//     a larger one (the plan says which) streams through a 2048-point
+//     tile whose successor is loaded into registers while the tile is
+//     scanned (the AoS points convert to float4 on the way in, which a
+//     cp.async or TMA copy of the raw bytes could not do without a
+//     second pass); the CTA stops after the tile in which every one of
+//     its queries has nsample hits, block-uniformly.
+//   - A warp holds G queries and each lane tests U points a step: G x U
+//     independent distance tests a step, the next step's points loaded
+//     before this step's counts decide whether it runs.
+//   - A step's ballots are written as they are, the words of each query's
+//     hit bitmap, and counted with one warp reduction a query; after the
+//     scan (of the tile, when streamed) one pass over the bitmap ranks
+//     the hits with a prefix sum of the words' bit counts and places the
+//     first nsample in index order.  The first hit is the lowest set bit.
+//   - Slots go to shared memory; a warp then writes a query's idx and
+//     grouped rows, the rows as 16-byte stores.
+//   - The packed tier reduces the bounding box from the staged cloud and
+//     dequantises each written point in the epilogue, bit for bit as
+//     quantize_kernel does; only where the cloud streams does quantize_
+//     kernel still run first and write its (B, N, 3) plane.
+// Several warps a query (splitting each step, exchanging counts through
+// shared memory with a named barrier a step) were swept and lost at
+// every path shape, the large cloud's included (PERF.md section 6).  The
+// launch plan (variant (G, U), staged or streamed) comes from the shapes
+// alone: ops/kernels/ball_query.py::bq_plan.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 2048;                       // points a streamed tile
+constexpr int kTilePerThread = kTile / kThreads;  // its points a thread
 constexpr int kQuantThreads = 256;
 constexpr float kLevels = 1023.0f;
+// the dynamic shared memory a launch may take without opting in
+constexpr size_t kDefaultSmem = 47 * 1024;
+
+// (G queries a warp, U points a lane a step) of each variant, in the
+// order of ops/kernels/ball_query.py's VARIANTS
+#define BQ_VARIANTS(X) X(1, 4) X(1, 8) X(4, 4) X(4, 8)
+
+struct Args {
+  const float* xyz;      // (batch, n, 3): the hit test
+  const float* coords;   // (batch, n, 3): the rows a streamed launch copies
+  const float* new_xyz;  // (batch, m, 3)
+  int batch, n, m, nsample;
+  float r2;
+  float* grouped;        // (batch, m, nsample, 3), or null
+  int* cnt;              // (batch, m)
+  int* idx;              // (batch, m, nsample), or null
+  int staged;            // the whole cloud in shared memory
+  int packed;            // grouped rows dequantised from the staged cloud
+  int tile_pts;          // points of the shared tile (padded)
+};
 
 __device__ __forceinline__ float sqnorm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                    __fmul_rn(z, z));
 }
 
-// One warp per query.  Hits are tested on `xyz`; kGrouped writes
-// coords[hit] - query into `grouped` (coords is xyz itself for the exact
-// tier, the dequantised cloud for the packed one).  idx may be null only
-// when kGrouped.
-template <bool kGrouped>
-__global__ void __launch_bounds__(kThreads)
-    ball_query_kernel(const float* __restrict__ xyz,
-                      const float* __restrict__ coords,
-                      const float* __restrict__ new_xyz, int batch, int n,
-                      int m, int nsample, float r2,
-                      float* __restrict__ grouped, int* __restrict__ cnt_out,
-                      int* __restrict__ idx_out) {
-  const int query = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (query >= batch * m) return;  // uniform per warp
-  const int b = query / m;
-  const float* pts = xyz + static_cast<size_t>(b) * n * 3;
-  const float* src = coords + static_cast<size_t>(b) * n * 3;
-  const float qx = new_xyz[3 * static_cast<size_t>(query) + 0];
-  const float qy = new_xyz[3 * static_cast<size_t>(query) + 1];
-  const float qz = new_xyz[3 * static_cast<size_t>(query) + 2];
-  const float q2 = sqnorm(qx, qy, qz);
-  float* out = kGrouped ? grouped + static_cast<size_t>(query) * nsample * 3
-                        : nullptr;
-  int* idx = idx_out ? idx_out + static_cast<size_t>(query) * nsample
-                     : nullptr;
-
-  int cnt = 0;    // hits so far (warp-uniform)
-  int first = 0;  // index of the first hit; point 0 when there is none
-  // an unsigned counter, so that base + 32 cannot wrap for any int32 n;
-  // the point offsets are widened where they are formed (3 * k passes
-  // int32 above ~715M points)
-  const unsigned un = static_cast<unsigned>(n);
-  for (unsigned base = 0; base < un && cnt < nsample; base += 32) {
-    const unsigned k = base + lane;
-    const size_t k3 = 3 * static_cast<size_t>(k);
-    bool hit = false;
-    if (k < un) {
-      const float px = __ldg(pts + k3 + 0);
-      const float py = __ldg(pts + k3 + 1);
-      const float pz = __ldg(pts + k3 + 2);
-      const float inner = __fadd_rn(
-          __fadd_rn(__fmul_rn(qx, px), __fmul_rn(qy, py)), __fmul_rn(qz, pz));
-      const float d2 = __fsub_rn(__fadd_rn(q2, sqnorm(px, py, pz)),
-                                 __fmul_rn(2.0f, inner));
-      hit = d2 < r2;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    if (cnt == 0 && ballot != 0u) {
-      first = static_cast<int>(base) + __ffs(ballot) - 1;
-    }
-    if (hit) {
-      const int slot = cnt + __popc(ballot & ((1u << lane) - 1u));
-      if (slot < nsample) {
-        if (kGrouped) {
-          out[3 * slot + 0] = __fsub_rn(__ldg(src + k3 + 0), qx);
-          out[3 * slot + 1] = __fsub_rn(__ldg(src + k3 + 1), qy);
-          out[3 * slot + 2] = __fsub_rn(__ldg(src + k3 + 2), qz);
-        }
-        if (idx) idx[slot] = static_cast<int>(k);
-      }
-    }
-    cnt += __popc(ballot);
-  }
-  cnt = min(cnt, nsample);
-
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-  if (kGrouped) {
-    const float* f = src + 3 * static_cast<size_t>(first);
-    fx = __fsub_rn(__ldg(f + 0), qx);
-    fy = __fsub_rn(__ldg(f + 1), qy);
-    fz = __fsub_rn(__ldg(f + 2), qz);
-  }
-  for (int s = cnt + lane; s < nsample; s += 32) {
-    if (kGrouped) {
-      out[3 * s + 0] = fx;
-      out[3 * s + 1] = fy;
-      out[3 * s + 2] = fz;
-    }
-    if (idx) idx[s] = first;
-  }
-  if (lane == 0) cnt_out[query] = cnt;
+__device__ __forceinline__ float4 nan4() {
+  // padding past the cloud: d2 is NaN, never below r2
+  return make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
 }
 
-// The packed tier's prologue: one block per cloud reduces the bounding
-// box, then writes every point's dequantised coordinates to `deq`.
+__device__ __forceinline__ float4 point4(float x, float y, float z) {
+  return make_float4(x, y, z, sqnorm(x, y, z));
+}
+
+__device__ __forceinline__ bool in_ball(const float4 p, float qx, float qy,
+                                        float qz, float q2, float r2) {
+  const float inner = __fadd_rn(
+      __fadd_rn(__fmul_rn(qx, p.x), __fmul_rn(qy, p.y)), __fmul_rn(qz, p.z));
+  // (q2 + p2) - 2 inner: 2 inner is exact, so one fused multiply-add
+  // rounds the difference once, as the separate multiply and subtract do
+  const float d2 = __fmaf_rn(-2.0f, inner, __fadd_rn(q2, p.w));
+  return d2 < r2;
+}
+
+// The U ballot words of one query's step, one store by lane 0 (the
+// chunk index is a multiple of U and a row a multiple of U words, so the
+// store is aligned)
+template <int U>
+__device__ __forceinline__ void store_words(unsigned* p,
+                                            const unsigned (&w)[U]) {
+  if constexpr (U == 8) {
+    reinterpret_cast<uint4*>(p)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<uint4*>(p)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  } else {
+    static_assert(U == 4, "U is 4 or 8");
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The scan of `count` staged points (a multiple of the step, 32 U) for
+// this warp's G queries.  Each 32-point chunk's ballot is the chunk's
+// word of the query's hit bitmap (`bits`, G rows of `nwords`); cnt counts
+// every hit (it may pass nsample).  The ranks are left to `extract`, so
+// a step costs a ballot and a lane count a (query, point) pair and one
+// warp reduction a query, and no population counts; the next step's
+// points are loaded before this step's counts decide whether it runs.
+// Stops once all G queries are full; returns the end of the scanned
+// prefix.
+template <int G, int U>
+__device__ __forceinline__ int scan(const float4* cloud, int count, int lane,
+                                    int nsample, float r2,
+                                    const float (&qx)[G], const float (&qy)[G],
+                                    const float (&qz)[G], const float (&q2)[G],
+                                    int (&cnt)[G], unsigned* bits,
+                                    int nwords) {
+  constexpr int kStep = 32 * U;
+  float4 p[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) p[u] = cloud[u * 32 + lane];
+  int base = 0;
+  for (; base < count; base += kStep) {
+    bool full = true;
+#pragma unroll
+    for (int g = 0; g < G; ++g) full = full && cnt[g] >= nsample;
+    if (full) break;
+    unsigned bal[G][U];
+    int total[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      int hits = 0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool hit = in_ball(p[u], qx[g], qy[g], qz[g], q2[g], r2);
+        bal[g][u] = __ballot_sync(0xffffffffu, hit);
+        hits += hit;
+      }
+      total[g] = hits;
+    }
+    // the next step's points (the last step reloads its own)
+    const int next = min(base + kStep, count - kStep);
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] = cloud[next + u * 32 + lane];
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        store_words<U>(bits + g * nwords + base / 32, bal[g]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      cnt[g] += __reduce_add_sync(0xffffffffu, total[g]);
+    }
+  }
+  return base;
+}
+
+// A query's slots from its hit bitmap: the set bits of words[0, nw) in
+// order (bit j of word w is point base + 32 w + j), appended from slot
+// `have` while fewer than nsample are in.  One warp: a prefix sum of the
+// words' bit counts places each lane's bits.
+__device__ __forceinline__ void extract(const unsigned* words, int nw,
+                                        unsigned base, int have, int nsample,
+                                        int* slots, int lane) {
+  for (int w0 = 0; w0 < nw && have < nsample; w0 += 32) {
+    const int w = w0 + lane;
+    unsigned b = w < nw ? words[w] : 0u;
+    const int c = __popc(b);
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += t;
+    }
+    int slot = have + incl - c;
+    while (b != 0u && slot < nsample) {
+      slots[slot++] = static_cast<int>(base + 32u * w + __ffs(b) - 1);
+      b &= b - 1u;
+    }
+    have += __shfl_sync(0xffffffffu, incl, 31);
+  }
+}
+
+// A streamed tile's points, one register triple per point of this thread
+__device__ __forceinline__ void load_tile(const float* pts, unsigned un,
+                                          unsigned t0,
+                                          float (&r)[kTilePerThread][3]) {
+#pragma unroll
+  for (int p = 0; p < kTilePerThread; ++p) {
+    const unsigned k = t0 + p * kThreads + threadIdx.x;
+    if (k < un) {
+      const size_t k3 = 3 * static_cast<size_t>(k);
+      r[p][0] = __ldg(pts + k3 + 0);
+      r[p][1] = __ldg(pts + k3 + 1);
+      r[p][2] = __ldg(pts + k3 + 2);
+    }
+  }
+}
+
+// The packed tier's bounding box from the staged cloud: box[c] = mn,
+// box[3 + c] = 1023 / ext, box[6 + c] = ext * f32(1/1023), as
+// quantize_kernel computes them (min and max are exact in any order).
+// Every thread calls it; box is ready after the caller's next barrier.
+__device__ void reduce_box(const float4* cloud, int n, float* box) {
+  __shared__ float red[2][3][kWarps];
+  float mn[3] = {CUDART_INF_F, CUDART_INF_F, CUDART_INF_F};
+  float mx[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    const float4 p = cloud[k];
+    mn[0] = fminf(mn[0], p.x);
+    mn[1] = fminf(mn[1], p.y);
+    mn[2] = fminf(mn[2], p.z);
+    mx[0] = fmaxf(mx[0], p.x);
+    mx[1] = fmaxf(mx[1], p.y);
+    mx[2] = fmaxf(mx[2], p.z);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn[c] = fminf(mn[c], __shfl_down_sync(0xffffffffu, mn[c], off));
+      mx[c] = fmaxf(mx[c], __shfl_down_sync(0xffffffffu, mx[c], off));
+    }
+    if (lane == 0) {
+      red[0][c][warp] = mn[c];
+      red[1][c][warp] = mx[c];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    const int c = threadIdx.x;
+    float lo = red[0][c][0], hi = red[1][c][0];
+    for (int w = 1; w < kWarps; ++w) {
+      lo = fminf(lo, red[0][c][w]);
+      hi = fmaxf(hi, red[1][c][w]);
+    }
+    const float ext = fmaxf(__fsub_rn(hi, lo), 1e-6f);
+    box[c] = lo;
+    box[3 + c] = __fdiv_rn(kLevels, ext);
+    box[6 + c] = __fmul_rn(ext, __fdiv_rn(1.0f, kLevels));
+  }
+}
+
+__device__ __forceinline__ float dequantise(float p, const float* box,
+                                            int c) {
+  const float lo = box[c];
+  const float q = fminf(
+      fmaxf(floorf(__fmaf_rn(__fsub_rn(p, lo), box[3 + c], 0.5f)), 0.0f),
+      kLevels);
+  return __fmaf_rn(q, box[6 + c], lo);
+}
+
+// One CTA: queries [m0, m0 + qc) of cloud b, qc = 8 G, G a warp.
+// Shared memory (dynamic): the tile (float4 a point), the hit bitmaps
+// (qc rows of tile / 32 words), the slots (qc rows of nsample), the
+// queries (qc x 3) and the packed tier's box (9).
+template <bool kGrouped, int G, int U>
+__global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
+  extern __shared__ float4 smem[];
+  const int qc = kWarps * G;
+  const int S = a.nsample;
+  const int nwords = a.tile_pts / 32;
+  float4* cloud = smem;
+  unsigned* sbits = reinterpret_cast<unsigned*>(cloud + a.tile_pts);
+  int* sidx = reinterpret_cast<int*>(sbits + qc * nwords);
+  float* sq = reinterpret_cast<float*>(sidx + qc * S);
+  float* box = sq + 3 * qc;
+
+  const int tiles_m = (a.m + qc - 1) / qc;
+  const int b = blockIdx.x / tiles_m;
+  const int m0 = (blockIdx.x - b * tiles_m) * qc;
+  const int qv = min(qc, a.m - m0);  // queries this CTA answers
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned un = static_cast<unsigned>(a.n);
+  const float* pts = a.xyz + static_cast<size_t>(b) * a.n * 3;
+  const size_t row0 = static_cast<size_t>(b) * a.m + m0;
+
+  float qx[G], qy[G], qz[G], q2[G];
+  int cnt[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int ql = warp * G + g;
+    if (ql < qv) {
+      const float* q = a.new_xyz + 3 * (row0 + ql);
+      qx[g] = __ldg(q + 0);
+      qy[g] = __ldg(q + 1);
+      qz[g] = __ldg(q + 2);
+      q2[g] = sqnorm(qx[g], qy[g], qz[g]);
+      cnt[g] = 0;
+      if (lane == 0) {
+        sq[3 * ql + 0] = qx[g];
+        sq[3 * ql + 1] = qy[g];
+        sq[3 * ql + 2] = qz[g];
+      }
+    } else {
+      qx[g] = qy[g] = qz[g] = q2[g] = CUDART_NAN_F;
+      cnt[g] = S;  // no query here: full from the start
+    }
+  }
+
+  unsigned* my_bits = sbits + warp * G * nwords;
+  int* my_idx = sidx + warp * G * S;
+  if (a.staged) {
+#pragma unroll 4
+    for (int k = threadIdx.x; k < a.tile_pts; k += kThreads) {
+      if (static_cast<unsigned>(k) < un) {
+        const float* p = pts + 3 * static_cast<size_t>(k);
+        cloud[k] = point4(__ldg(p + 0), __ldg(p + 1), __ldg(p + 2));
+      } else {
+        cloud[k] = nan4();
+      }
+    }
+    __syncthreads();
+    const int end = scan<G, U>(cloud, a.tile_pts, lane, S, a.r2, qx, qy, qz,
+                               q2, cnt, my_bits, nwords);
+    __syncwarp();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      extract(my_bits + g * nwords, end / 32, 0u, 0, S, my_idx + g * S, lane);
+    }
+  } else {
+    constexpr int kStep = 32 * U;
+    float r[kTilePerThread][3];
+    load_tile(pts, un, 0u, r);
+    for (unsigned t0 = 0;; t0 += kTile) {
+#pragma unroll
+      for (int p = 0; p < kTilePerThread; ++p) {
+        const unsigned k = t0 + p * kThreads + threadIdx.x;
+        cloud[p * kThreads + threadIdx.x] =
+            k < un ? point4(r[p][0], r[p][1], r[p][2]) : nan4();
+      }
+      __syncthreads();
+      const unsigned left = un - t0;  // > 0
+      const bool more = left > static_cast<unsigned>(kTile);
+      if (more) load_tile(pts, un, t0 + kTile, r);  // in flight meanwhile
+      const int count =
+          more ? kTile : static_cast<int>((left + kStep - 1) / kStep * kStep);
+      int have[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) have[g] = cnt[g];
+      const int end = scan<G, U>(cloud, count, lane, S, a.r2, qx, qy, qz, q2,
+                                 cnt, my_bits, nwords);
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        extract(my_bits + g * nwords, end / 32, t0, have[g], S,
+                my_idx + g * S, lane);
+      }
+      bool full = true;
+#pragma unroll
+      for (int g = 0; g < G; ++g) full = full && cnt[g] >= S;
+      // also keeps the next tile's stores off this tile and its bitmaps
+      const int all_full = __syncthreads_and(full);
+      if (all_full || !more) break;
+    }
+  }
+  __syncthreads();
+
+  // slots past the count take the first hit (point 0 without one)
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int ql = warp * G + g;
+    if (ql < qv) {
+      const int c = min(cnt[g], S);
+      int* slots = sidx + ql * S;
+      const int first = c > 0 ? slots[0] : 0;
+      for (int s = c + lane; s < S; s += 32) slots[s] = first;
+      if (lane == 0) a.cnt[row0 + ql] = c;
+    }
+  }
+  if (kGrouped && a.packed) reduce_box(cloud, a.n, box);
+  __syncthreads();
+
+  if (a.idx) {
+    int* out = a.idx + row0 * S;
+    for (int e = threadIdx.x; e < qv * S; e += kThreads) out[e] = sidx[e];
+  }
+  if (kGrouped) {
+    // one warp a query's row of S x 3 floats, 16-byte stores where every
+    // row starts 16-byte aligned
+    const float* cloud_f = reinterpret_cast<const float*>(cloud);
+    const float* src = a.coords + static_cast<size_t>(b) * a.n * 3;
+    const int row = 3 * S;
+    const bool vec =
+        (reinterpret_cast<uintptr_t>(a.grouped) & 15u) == 0 && row % 4 == 0;
+    for (int ql = warp; ql < qv; ql += kWarps) {
+      const int* slots = sidx + ql * S;
+      const float* q = sq + 3 * ql;
+      auto value = [&](int e) -> float {
+        const int s = e / 3;
+        const int c = e - 3 * s;
+        const int k = slots[s];
+        float p;
+        if (a.staged) {
+          p = cloud_f[4 * k + c];
+          if (a.packed) p = dequantise(p, box, c);
+        } else {
+          p = __ldg(src + 3 * static_cast<size_t>(k) + c);
+        }
+        return __fsub_rn(p, q[c]);
+      };
+      float* out = a.grouped + (row0 + ql) * row;
+      if (vec) {
+        float4* out4 = reinterpret_cast<float4*>(out);
+        for (int v = lane; v < row / 4; v += 32) {
+          out4[v] = make_float4(value(4 * v), value(4 * v + 1),
+                                value(4 * v + 2), value(4 * v + 3));
+        }
+      } else {
+        for (int e = lane; e < row; e += 32) out[e] = value(e);
+      }
+    }
+  }
+}
+
+// The packed tier's prologue where the cloud streams: one block per cloud
+// reduces the bounding box, then writes every point's dequantised
+// coordinates to `deq`.
 __global__ void __launch_bounds__(kQuantThreads)
     quantize_kernel(const float* __restrict__ xyz, int n,
                     float* __restrict__ deq) {
@@ -156,7 +473,7 @@ __global__ void __launch_bounds__(kQuantThreads)
   for (int k = threadIdx.x; k < n; k += kQuantThreads) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float v = pts[3 * k + c];
+      const float v = pts[3 * static_cast<size_t>(k) + c];
       mn[c] = fminf(mn[c], v);
       mx[c] = fmaxf(mx[c], v);
     }
@@ -197,64 +514,141 @@ __global__ void __launch_bounds__(kQuantThreads)
   for (int k = threadIdx.x; k < n; k += kQuantThreads) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
+      const size_t e = 3 * static_cast<size_t>(k) + c;
       const float q = fminf(
-          fmaxf(floorf(__fmaf_rn(__fsub_rn(pts[3 * k + c], lo[c]), scl[c],
-                                 0.5f)),
+          fmaxf(floorf(__fmaf_rn(__fsub_rn(pts[e], lo[c]), scl[c], 0.5f)),
                 0.0f),
           kLevels);
-      out[3 * k + c] = __fmaf_rn(q, inv[c], lo[c]);
+      out[e] = __fmaf_rn(q, inv[c], lo[c]);
     }
   }
 }
 
-int launch(bool grouped_out, const float* xyz, const float* coords,
-           const float* new_xyz, int batch, int n, int m, int nsample,
-           float r2, float* grouped, int* cnt, int* idx,
+using KernelFn = void (*)(Args);
+
+#define BQ_G(g, u) g,
+#define BQ_U(g, u) u,
+constexpr int kVariantG[] = {BQ_VARIANTS(BQ_G)};
+constexpr int kVariantU[] = {BQ_VARIANTS(BQ_U)};
+#undef BQ_G
+#undef BQ_U
+constexpr int kVariants = sizeof(kVariantG) / sizeof(kVariantG[0]);
+
+template <bool kGrouped>
+KernelFn kernel_for(int variant) {
+#define BQ_FN(g, u) &ball_query_kernel<kGrouped, g, u>,
+  static const KernelFn table[] = {BQ_VARIANTS(BQ_FN)};
+#undef BQ_FN
+  return table[variant];
+}
+
+// One launch of the scan at (variant, staged); a plan the card
+// refuses (too much shared memory, too many CTAs) returns its error.
+int launch(bool grouped, int variant, int staged, int packed, Args a,
            cudaStream_t stream) {
-  const int queries = batch * m;
-  const int blocks = (queries + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (grouped_out) {
-    ball_query_kernel<true><<<blocks, kThreads, 0, stream>>>(
-        xyz, coords, new_xyz, batch, n, m, nsample, r2, grouped, cnt, idx);
-  } else {
-    ball_query_kernel<false><<<blocks, kThreads, 0, stream>>>(
-        xyz, coords, new_xyz, batch, n, m, nsample, r2, grouped, cnt, idx);
+  if (variant < 0 || variant >= kVariants ||
+      a.batch < 1 ||
+      a.n < 1 || a.m < 1 || a.nsample < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int G = kVariantG[variant];
+  const int U = kVariantU[variant];
+  const long long qc = kWarps * G;
+  const long long step = 32LL * U;
+  const long long tile_pts = staged ? (a.n + step - 1) / step * step : kTile;
+  const long long bytes = 16 * tile_pts + 4 * (qc * (tile_pts / 32)) +
+                          4 * (qc * a.nsample) + 4 * (3 * qc) + 4 * 9;
+  const long long blocks = static_cast<long long>(a.batch) *
+                           ((a.m + qc - 1) / qc);
+  if (bytes > (1LL << 30) || blocks > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  a.staged = staged;
+  a.packed = packed;
+  a.tile_pts = static_cast<int>(tile_pts);
+  const KernelFn fn = grouped ? kernel_for<true>(variant)
+                              : kernel_for<false>(variant);
+  if (static_cast<size_t>(bytes) > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(fn),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fn<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(bytes),
+       stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const float* xyz, const float* coords, const float* new_xyz,
+               int batch, int n, int m, int nsample, float r2, float* grouped,
+               int* cnt, int* idx) {
+  Args a{};
+  a.xyz = xyz;
+  a.coords = coords;
+  a.new_xyz = new_xyz;
+  a.batch = batch;
+  a.n = n;
+  a.m = m;
+  a.nsample = nsample;
+  a.r2 = r2;
+  a.grouped = grouped;
+  a.cnt = cnt;
+  a.idx = idx;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// idx may be null (no index output).  Returns cudaGetLastError().
-int ball_query_group_launch(const float* xyz, const float* new_xyz,
-                            int batch, int n, int m, int nsample, float r2,
+// Each entry takes the plan first: variant (an index into BQ_VARIANTS),
+// and staged (1: the whole cloud in shared memory).  Launches on
+// `stream` and returns cudaGetLastError() (or the refusal's code).
+
+// idx may be null (no index output).
+int ball_query_group_launch(int variant, int staged,
+                            const float* xyz, const float* new_xyz, int batch,
+                            int n, int m, int nsample, float r2,
                             float* grouped, int* cnt, int* idx,
                             cudaStream_t stream) {
-  return launch(true, xyz, xyz, new_xyz, batch, n, m, nsample, r2, grouped,
-                cnt, idx, stream);
+  return launch(true, variant, staged, 0,
+                make_args(xyz, xyz, new_xyz, batch, n, m, nsample, r2,
+                          grouped, cnt, idx),
+                stream);
 }
 
-// deq is (batch, n, 3) scratch that receives the dequantised cloud; idx
-// may be null.  Two launches on `stream`; returns cudaGetLastError().
-int ball_query_group_packed_launch(const float* xyz, const float* new_xyz,
+// A staged launch dequantises in the scan's epilogue (deq unused, may be
+// null); a streamed one first runs quantize_kernel into deq, a
+// (batch, n, 3) scratch plane, then copies rows from it.  idx may be null.
+int ball_query_group_packed_launch(int variant, int staged,
+                                   const float* xyz, const float* new_xyz,
                                    int batch, int n, int m, int nsample,
                                    float r2, float* deq, float* grouped,
                                    int* cnt, int* idx, cudaStream_t stream) {
-  quantize_kernel<<<batch, kQuantThreads, 0, stream>>>(xyz, n, deq);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch(true, xyz, deq, new_xyz, batch, n, m, nsample, r2, grouped,
-                cnt, idx, stream);
+  const float* coords = xyz;
+  if (!staged) {
+    if (deq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    quantize_kernel<<<batch, kQuantThreads, 0, stream>>>(xyz, n, deq);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    coords = deq;
+  }
+  return launch(true, variant, staged, staged,
+                make_args(xyz, coords, new_xyz, batch, n, m, nsample, r2,
+                          grouped, cnt, idx),
+                stream);
 }
 
-// idx is required.  Returns cudaGetLastError().
-int ball_query_idx_launch(const float* xyz, const float* new_xyz, int batch,
-                          int n, int m, int nsample, float r2, int* cnt,
-                          int* idx, cudaStream_t stream) {
-  return launch(false, xyz, xyz, new_xyz, batch, n, m, nsample, r2, nullptr,
-                cnt, idx, stream);
+// idx is required.
+int ball_query_idx_launch(int variant, int staged, const float* xyz,
+                          const float* new_xyz, int batch, int n, int m,
+                          int nsample, float r2, int* cnt, int* idx,
+                          cudaStream_t stream) {
+  if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(false, variant, staged, 0,
+                make_args(xyz, xyz, new_xyz, batch, n, m, nsample, r2,
+                          nullptr, cnt, idx),
+                stream);
 }
 
 const char* ball_query_error_string(int code) {

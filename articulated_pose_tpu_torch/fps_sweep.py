@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 import numpy as np
@@ -141,23 +140,6 @@ def arm() -> dict:
     return times
 
 
-def ab(roots) -> list:
-    """One process per root, in order; each prints its times as JSON."""
-    runs = []
-    for root in roots:
-        root = str(pathlib.Path(root).resolve())
-        out = subprocess.run([sys.executable, __file__, "--arm", root],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"arm {root} failed (rc {out.returncode}):\n"
-                               f"{out.stderr}")
-        times = json.loads(out.stdout.strip().splitlines()[-1])
-        runs.append(dict(root=root, times=times))
-        print(f"[ab] {root}: " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                           times.items()), flush=True)
-    return runs
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ab", nargs="+", metavar="ROOT",
@@ -176,13 +158,12 @@ def main(argv=None) -> int:
     if args.arm:
         print(json.dumps(arm()), flush=True)
         return 0
-    result = {"card": subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]}
+    from articulated_pose_tpu_torch.timing import card_line, run_arms
+
+    result = {"card": card_line()}
     print(f"[card] {result['card']}", flush=True)
     if args.ab:
-        result["ab"] = ab(args.ab)
+        result["ab"] = run_arms(__file__, args.ab)
     else:
         result["sweep"] = sweep()
     if args.out:

@@ -22,17 +22,22 @@
   hit of the j-th of S equal buckets of the padded cloud, its offset
   rounded to bf16; cnt counts every hit.
 
-The first five run `csrc/ball_query.cu`: one warp per query scans the
-cloud in index order with ballot/popc slot ranks and stops at nsample
-hits.  B8 runs `csrc/ball_query_bucket.cu`: the same warp scan over the
-whole cloud, one first-set-bit per bucket.  The sources say what bounds
-them.  A CPU tensor takes the `*_plain` version; a CUDA tensor takes
-the kernel.
+The first five run `csrc/ball_query.cu`: a CTA of eight warps answers
+8 G queries of one cloud, staged whole in shared memory (or streamed
+through it in 2048-point tiles); each warp scans in index order for its
+G queries, U points a lane a step, keeps the ballots as hit bitmaps and
+stops once every query has nsample hits; the bitmaps give the slots in
+order.  `bq_plan` picks the launch (variant (G, U), staged or streamed)
+from the shapes alone.  B8 runs
+`csrc/ball_query_bucket.cu`: a warp scan over the whole cloud, one
+first-set-bit per bucket.  The sources say what bounds them.  A CPU
+tensor takes the `*_plain` version; a CUDA tensor takes the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,54 +49,95 @@ from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
 
 # the streaming tier carries indices as f32 (ball_query_stream.py:156-163)
 STREAM_MAX_POINTS = 1 << 24
+# csrc/ball_query.cu's variants, in its BQ_VARIANTS order: name -> (G
+# queries a warp, U points a lane a step)
+VARIANTS = {f"g{g}u{u}": (g, u) for g in (1, 4) for u in (4, 8)}
+CTA_WARPS = 8
+TILE_POINTS = 2048                  # a streamed tile
+# shared memory a CTA may take on the H100 (232,448 bytes), less room for
+# the kernel's static part
+SMEM_BYTES = 232448 - 1024
+# bq_plan's rule, read off the sweep of every plan at the paths' shapes on
+# the card (python -m articulated_pose_tpu_torch.bq_sweep; PERF.md section
+# 6): stage the cloud up to STAGE_POINTS (at 8192 points streaming won);
+# four queries a warp from MANY_QUERIES queries a launch, one below it
+# (where four a warp leave too few CTAs to fill the card); four points a
+# lane a step where the cloud is staged, eight where it streams
+STAGE_POINTS = 2048
+MANY_QUERIES = 8192
 
 
-def _bind_error(lib: ctypes.CDLL) -> None:
-    lib.ball_query_error_string.argtypes = [ctypes.c_int]
+class Plan(NamedTuple):
+    variant: str                    # a key of VARIANTS
+    staged: bool                    # the whole cloud in shared memory
+
+
+def queries_per_cta(plan: Plan) -> int:
+    return CTA_WARPS * VARIANTS[plan.variant][0]
+
+
+def smem_bytes(plan: Plan, N: int, nsample: int) -> int:
+    """The launch's dynamic shared memory, as csrc/ball_query.cu sizes it:
+    the tile, the hit bitmaps, the slots, the queries and the box."""
+    step = 32 * VARIANTS[plan.variant][1]
+    tile = -(-N // step) * step if plan.staged else TILE_POINTS
+    qc = queries_per_cta(plan)
+    return 16 * tile + 4 * qc * (tile // 32 + nsample + 3) + 4 * 9
+
+
+def bq_plan(B: int, N: int, M: int, nsample: int) -> Plan:
+    """The launch for B clouds of N points, M queries each, nsample slots,
+    by the rule above.  Needs no library, so the CPU tests reach it.
+    Raises ValueError where no launch holds nsample slots."""
+    if min(B, N, M, nsample) < 1:
+        raise ValueError(f"bq_plan: need B, N, M, nsample > 0, got B={B}, "
+                         f"N={N}, M={M}, nsample={nsample}")
+    G = 4 if B * M >= MANY_QUERIES else 1
+    # where nsample's slots crowd the staged cloud out of shared memory,
+    # stream it, with one query a warp if need be
+    for plan in ((Plan(f"g{G}u4", True),) if N <= STAGE_POINTS else ()) + (
+            Plan(f"g{G}u8", False), Plan("g1u8", False)):
+        if smem_bytes(plan, N, nsample) <= SMEM_BYTES:
+            return plan
+    raise ValueError(f"bq_plan: nsample={nsample} slots do not fit a CTA's "
+                     "shared memory")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plan = [I, I]
+    lib.ball_query_group_launch.argtypes = plan + [P, P, I, I, I, I, F, P, P,
+                                                   P, P]
+    lib.ball_query_group_packed_launch.argtypes = plan + [
+        P, P, I, I, I, I, F, P, P, P, P, P]
+    lib.ball_query_idx_launch.argtypes = plan + [P, P, I, I, I, I, F, P, P,
+                                                 P]
+    for fn in (lib.ball_query_group_launch, lib.ball_query_group_packed_launch,
+               lib.ball_query_idx_launch):
+        fn.restype = I
+    lib.ball_query_error_string.argtypes = [I]
     lib.ball_query_error_string.restype = ctypes.c_char_p
-
-
-def _bind_group(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ball_query_group_launch.argtypes = [P, P, I, I, I, I, ctypes.c_float,
-                                            P, P, P, P]
-    lib.ball_query_group_launch.restype = I
-    _bind_error(lib)
-
-
-def _bind_packed(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ball_query_group_packed_launch.argtypes = [
-        P, P, I, I, I, I, ctypes.c_float, P, P, P, P, P]
-    lib.ball_query_group_packed_launch.restype = I
-    _bind_error(lib)
-
-
-def _bind_idx(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ball_query_idx_launch.argtypes = [P, P, I, I, I, I, ctypes.c_float,
-                                          P, P, P]
-    lib.ball_query_idx_launch.restype = I
-    _bind_error(lib)
 
 
 KERNEL = CudaKernel(
     "ball_query_group", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:422",
-    _bind_group)
+    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:422", _bind)
 PACKED_KERNEL = CudaKernel(
     "ball_query_group_packed", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:269",
-    _bind_packed)
+    "articulated_pose_tpu/ops/pallas/ball_query_butterfly.py:269", _bind)
 IDX_KERNEL = CudaKernel(
     "ball_query_idx", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query_stream.py:142", _bind_idx)
+    "articulated_pose_tpu/ops/pallas/ball_query_stream.py:142", _bind)
 POINT_KERNEL = CudaKernel(
     "ball_query_point", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query.py:251", _bind_idx)
+    "articulated_pose_tpu/ops/pallas/ball_query.py:251", _bind)
 POINT_GROUPED_KERNEL = CudaKernel(
     "ball_query_point_grouped", "ball_query.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query.py:194", _bind_group)
+    "articulated_pose_tpu/ops/pallas/ball_query.py:194", _bind)
+# which of the source's entries each kernel launches
+_TIER = {KERNEL.name: "group", POINT_GROUPED_KERNEL.name: "group",
+         PACKED_KERNEL.name: "packed", IDX_KERNEL.name: "idx",
+         POINT_KERNEL.name: "idx"}
 
 
 def _r2(radius: float) -> float:
@@ -114,32 +160,51 @@ def _check(name: str, xyz: torch.Tensor, new_xyz: torch.Tensor,
     return B, N, M
 
 
+def launch(kernel: CudaKernel, radius: float, nsample: int,
+           xyz: torch.Tensor, new_xyz: torch.Tensor, emit_idx: bool = True,
+           plan: Plan = None):
+    """One launch of csrc/ball_query.cu's entry for `kernel` (grouped,
+    packed or idx only) at `plan` (bq_plan's when None), counted on
+    `kernel`: (grouped or None, cnt, idx or None).  A launch the card
+    refuses raises with its error text."""
+    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
+    tier = _TIER[kernel.name]
+    plan = plan or bq_plan(B, N, M, nsample)
+    if plan.variant not in VARIANTS:
+        raise ValueError(f"{kernel.name}: unknown plan {plan}")
+    lib = kernel.lib()
+    dev = xyz.device
+    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
+    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
+           if emit_idx or tier == "idx" else None)
+    grouped = (None if tier == "idx" else
+               torch.empty((B, M, nsample, 3), dtype=torch.float32,
+                           device=dev))
+    args = (list(VARIANTS).index(plan.variant), int(plan.staged),
+            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius))
+    out = (ptr(cnt), None if idx is None else ptr(idx), stream_of(xyz))
+    with torch.cuda.device(dev):
+        if tier == "idx":
+            rc = lib.ball_query_idx_launch(*args, *out)
+        elif tier == "group":
+            rc = lib.ball_query_group_launch(*args, ptr(grouped), *out)
+        else:
+            # the dequantised plane, only where the cloud streams
+            deq = (None if plan.staged else
+                   torch.empty((B, N, 3), dtype=torch.float32, device=dev))
+            rc = lib.ball_query_group_packed_launch(
+                *args, None if deq is None else ptr(deq), ptr(grouped), *out)
+    check_rc(kernel, rc, lib.ball_query_error_string)
+    kernel.launches += 1
+    return grouped, cnt, idx
+
+
 def ball_query_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
                            new_xyz: torch.Tensor, emit_idx: bool = True):
     """query_ball_point + group_point − centre: the kernel's semantics."""
     idx, cnt = core.query_ball_point(radius, nsample, xyz, new_xyz)
     grouped = core.group_point(xyz.float(), idx) - new_xyz.float()[:, :, None]
     return grouped, cnt, (idx if emit_idx else None)
-
-
-def _group(kernel: CudaKernel, radius: float, nsample: int,
-           xyz: torch.Tensor, new_xyz: torch.Tensor, emit_idx: bool):
-    """K2's launch (`ball_query_group_launch`), counted on `kernel`."""
-    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
-    lib = kernel.lib()
-    dev = xyz.device
-    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
-    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
-           if emit_idx else None)
-    with torch.cuda.device(dev):
-        rc = lib.ball_query_group_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius),
-            ptr(grouped), ptr(cnt), ptr(idx) if emit_idx else None,
-            stream_of(xyz))
-    check_rc(kernel, rc, lib.ball_query_error_string)
-    kernel.launches += 1
-    return grouped, cnt, idx
 
 
 def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
@@ -149,7 +214,7 @@ def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
     None when not emit_idx)."""
     if xyz.device.type == "cpu":
         return ball_query_group_plain(radius, nsample, xyz, new_xyz, emit_idx)
-    return _group(KERNEL, radius, nsample, xyz, new_xyz, emit_idx)
+    return launch(KERNEL, radius, nsample, xyz, new_xyz, emit_idx)
 
 
 def ball_query_point_grouped_plain(radius: float, nsample: int,
@@ -166,8 +231,8 @@ def ball_query_point_grouped(radius: float, nsample: int, xyz: torch.Tensor,
     with no hit takes point 0 (ball_query.py:174-190)."""
     if xyz.device.type == "cpu":
         return ball_query_point_grouped_plain(radius, nsample, xyz, new_xyz)
-    grouped, cnt, idx = _group(POINT_GROUPED_KERNEL, radius, nsample, xyz,
-                               new_xyz, True)
+    grouped, cnt, idx = launch(POINT_GROUPED_KERNEL, radius, nsample, xyz,
+                               new_xyz)
     return idx, cnt, grouped
 
 
@@ -189,44 +254,12 @@ def ball_query_group_packed(radius: float, nsample: int, xyz: torch.Tensor,
     if xyz.device.type == "cpu":
         return ball_query_group_packed_plain(radius, nsample, xyz, new_xyz,
                                              emit_idx)
-    B, N, M = _check("ball_query_group_packed", xyz, new_xyz, nsample)
-    lib = PACKED_KERNEL.lib()
-    dev = xyz.device
-    deq = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
-    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
-    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
-           if emit_idx else None)
-    with torch.cuda.device(dev):
-        rc = lib.ball_query_group_packed_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(deq),
-            ptr(grouped), ptr(cnt), ptr(idx) if emit_idx else None,
-            stream_of(xyz))
-    check_rc(PACKED_KERNEL, rc, lib.ball_query_error_string)
-    PACKED_KERNEL.launches += 1
-    return grouped, cnt, idx
+    return launch(PACKED_KERNEL, radius, nsample, xyz, new_xyz, emit_idx)
 
 
 # q² + p² − 2·inner, as the streaming kernel sums it
 # (ball_query_stream.py:63-65): the expansion form of core.pairwise_sqdist
 ball_query_idx_plain = core.query_ball_point
-
-
-def _idx(kernel: CudaKernel, radius: float, nsample: int,
-         xyz: torch.Tensor, new_xyz: torch.Tensor):
-    """The idx-only launch (`ball_query_idx_launch`), counted on `kernel`."""
-    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
-    lib = kernel.lib()
-    dev = xyz.device
-    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ball_query_idx_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius), ptr(cnt),
-            ptr(idx), stream_of(xyz))
-    check_rc(kernel, rc, lib.ball_query_error_string)
-    kernel.launches += 1
-    return idx, cnt
 
 
 def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
@@ -240,7 +273,8 @@ def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
             f"range (2^24), as query_ball_point_stream does")
     if xyz.device.type == "cpu":
         return ball_query_idx_plain(radius, nsample, xyz, new_xyz)
-    return _idx(IDX_KERNEL, radius, nsample, xyz, new_xyz)
+    _, cnt, idx = launch(IDX_KERNEL, radius, nsample, xyz, new_xyz)
+    return idx, cnt
 
 
 ball_query_point_plain = core.query_ball_point
@@ -253,7 +287,8 @@ def ball_query_point(radius: float, nsample: int, xyz: torch.Tensor,
     (ball_query.py:254), for any int32 N."""
     if xyz.device.type == "cpu":
         return ball_query_point_plain(radius, nsample, xyz, new_xyz)
-    return _idx(POINT_KERNEL, radius, nsample, xyz, new_xyz)
+    _, cnt, idx = launch(POINT_KERNEL, radius, nsample, xyz, new_xyz)
+    return idx, cnt
 
 
 def _bind_bucket(lib: ctypes.CDLL) -> None:

@@ -1,12 +1,18 @@
 """Device timing on the card: spin-queued CUDA events, the profiler's
-device time and op count, and the roofline bound of a kernel's work.
+device time and op count, the roofline bound of a kernel's work, the
+card's name and power limit, and the A/B runner of the sweep scripts
+(`fps_sweep.py`, `bq_sweep.py`), which times several checkouts in turns.
 
 Every function here needs a CUDA device; none falls back to the host.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
 import statistics
+import subprocess
+import sys
 import time
 import warnings
 from typing import Callable, Optional, Tuple
@@ -115,3 +121,32 @@ def require_card(device: Optional[str] = None) -> torch.device:
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} is not an available CUDA device")
     return dev
+
+
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def run_arms(script: str, roots) -> list:
+    """An A/B of several checkouts on one card: `python script --arm ROOT`
+    once per root, in the order given (e.g. parent, new, new, parent).
+    Each process imports ROOT's own package and prints its times as one
+    JSON object on its last line; returns [{"root", "times"}] in order."""
+    runs = []
+    for root in roots:
+        root = str(pathlib.Path(root).resolve())
+        out = subprocess.run([sys.executable, script, "--arm", root],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"arm {root} failed (rc {out.returncode}):\n"
+                               f"{out.stderr}")
+        times = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append(dict(root=root, times=times))
+        print(f"[ab] {root}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                           times.items()), flush=True)
+    return runs

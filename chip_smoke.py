@@ -14,12 +14,14 @@ is non-zero):
    the shapes its paths give it: the serving path's (B=16, N=2048), the
    large-cloud path's (B=4, N=32768), the N-level path's (B=8,
    N=8192 -> 1024 -> 256 -> 64 -> 16), the stage profiler's (B=64,
-   N=2048 -> 512 -> 128) and the kernel entries' (B5g at B=64; B7 at
-   (4, 2048 <- 16384) and (4, 2048 <- 3000); B9 at (64, 2048 <- 512)):
-   exact indices and counts; coordinates within 1e-6 absolute (equal for
-   the packed, bucket and B5g tiers, whose queries include some moved
-   out of the cloud); 3-NN distances within 1e-6 relative (B7 equal;
-   B9's within one key quantum, with the entries that differ counted).
+   N=2048 -> 512 -> 128), bench.py's (B3 and B3p at B=64) and the kernel
+   entries' (B5g at B=64; B7 at (4, 2048 <- 16384) and (4, 2048 <-
+   3000); B9 at (64, 2048 <- 512)): exact indices, counts and grouped
+   coordinates (the B5g and bucket tiers' queries include some moved out
+   of the cloud); 3-NN distances within 1e-6 relative (B7 equal; B9's
+   within one key quantum, with the entries that differ counted).  Each
+   first-S ball-query shape prints its launch plan (`bq_plan`) and the
+   points a query examined, mean and max.
    B9 is also read against K3 as scripts/ab_threenn_packed.py reads the
    TPU kernels, with the bounds of tests/test_pallas_tpu.py.  Both FPS
    kernels also run at every cluster size on tie-heavy grid clouds and
@@ -170,13 +172,22 @@ def bound(flops: float, *tensors):
     return roofline_ms(flops, nbytes(*tensors))
 
 
-def scanned_points(idx, cnt, N: int) -> int:
+def scanned_points(idx, cnt, N: int):
     """Points a first-S ball query has to examine for these inputs: each
-    query's cloud up to its S-th hit, all of it when it has fewer."""
+    query's cloud up to its S-th hit, all of it when it has fewer.
+    Returns (the sum over the queries, the largest)."""
     import torch
 
     S = idx.shape[-1]
-    return int(torch.where(cnt >= S, idx[..., -1].long() + 1, N).sum())
+    n = torch.where(cnt >= S, idx[..., -1].long() + 1, N)
+    return int(n.sum()), int(n.max())
+
+
+def bq_note(pairs: int, most: int, queries: int, plan) -> str:
+    """The points a first-S query examined (mean, max) and the plan."""
+    return (f"{pairs / queries:.1f} points examined per query, at most "
+            f"{most}; plan {plan.variant} "
+            f"{'staged' if plan.staged else 'streamed'}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -358,8 +369,10 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
     coord_bound.  The emit_idx=False launch must give the same
     coordinates and counts.  The bound counts the points each query has
     to examine: up to its 64th hit, or the whole cloud (`whole_cloud`,
-    the bucket tier); `point_flops` per point of the cloud."""
-    import torch
+    the bucket tier); `point_flops` per point of the cloud.  The first-S
+    tiers also print their launch plan and the points examined per
+    query, mean and max."""
+    from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
 
     err, times, shapes, bounds = 0.0, [], [], []
     for pts, q, r, emit in cases:
@@ -376,15 +389,18 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
                       lambda: plain_fn(r, 64, pts, q, emit_idx=emit))
         B, N = pts.shape[:2]
         M = q.shape[1]
-        pairs = B * M * N if whole_cloud else scanned_points(idxp, cntp, N)
+        if whole_cloud:
+            pairs, scan = B * M * N, f"{N} points examined per query"
+        else:
+            pairs, most = scanned_points(idxp, cntp, N)
+            scan = bq_note(pairs, most, B * M, bq_plan(B, N, M, 64))
         bounds.append(bound(pairs * PAIR_FLOPS + B * N * point_flops
                             + B * M * NORM_FLOPS, pts, q, g, cnt,
                             idx if emit else None))
         shape = f"B{B} N{N} M{M} S64 r{r} emit_idx={emit}"
         log(f"[kernels] {name} {shape}: cnt, idx equal, grouped max abs "
             f"err {e:.3g}; {t[4]}; {bound_note(bounds[-1])} (mean cnt "
-            f"{cnt.float().mean().item():.2f}, {pairs / (B * M):.1f} points "
-            f"examined per query)")
+            f"{cnt.float().mean().item():.2f}, {scan})")
         times.append(t)
         shapes.append(shape)
     return kernel_result(err, times, shapes, bounds)
@@ -393,6 +409,8 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
 def compare_idx(name, kernel_fn, plain_fn, cases):
     """An idx-only first-S ball query at each (points, queries, radius),
     S=64: idx and cnt equal."""
+    from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
+
     err, times, shapes, bounds = 0.0, [], [], []
     for pts, q, r in cases:
         idx, cnt = kernel_fn(r, 64, pts, q)
@@ -402,14 +420,14 @@ def compare_idx(name, kernel_fn, plain_fn, cases):
                       lambda: plain_fn(r, 64, pts, q))
         B, N = pts.shape[:2]
         M = q.shape[1]
-        pairs = scanned_points(idxp, cntp, N)
+        pairs, most = scanned_points(idxp, cntp, N)
         bounds.append(bound(pairs * PAIR_FLOPS + (B * N + B * M) * NORM_FLOPS,
                             pts, q, idx, cnt))
         shape = f"B{B} N{N} M{M} S64 r{r}"
         log(f"[kernels] {name} {shape}: idx, cnt equal; {t[4]}; "
             f"{bound_note(bounds[-1])} (mean cnt "
-            f"{cnt.float().mean().item():.2f}, {pairs / (B * M):.1f} points "
-            f"examined per query)")
+            f"{cnt.float().mean().item():.2f}, "
+            f"{bq_note(pairs, most, B * M, bq_plan(B, N, M, 64))})")
         times.append(t)
         shapes.append(shape)
     return kernel_result(err, times, shapes, bounds)
@@ -527,13 +545,22 @@ def compare_kernels(dev):
     xyz1, xyz2 = picks["serve"]
     lxyz1, lxyz2 = picks["large"]
 
-    # K2 and B3p: SA1 (idx not emitted on the path) and SA2
-    serve_cases = ((cloud, xyz1, 0.2, False), (xyz1, xyz2, 0.4, True))
-    # (the exact tier keeps the first slice's 1e-6; the packed tier's
-    # quantiser is written to round as its plain version does: equal)
+    # the stage profiler's inputs: profile_stages draws them from seed 0
+    # in this order (P, Q1, Q2), which are also ab_threenn_packed.py's Q, P
+    prng = np.random.RandomState(0)
+    P64, Q1, Q2 = (torch.from_numpy(prng.rand(PROFILE_B, n, 3).astype(
+        np.float32)).to(dev) for n in (N_POINTS, 512, 128))
+
+    # K2 and B3p: SA1 (idx not emitted on the path) and SA2, at the
+    # serving batch and at bench.py's (B=64, the packed serve's batch);
+    # every output equal (both tiers compute the plain versions' f32
+    # subtraction, the packed one after the same quantiser)
+    _, bxyz1, _, bxyz2 = fps.fps2(P64, 512, 128)
+    serve_cases = ((cloud, xyz1, 0.2, False), (xyz1, xyz2, 0.4, True),
+                   (P64, bxyz1, 0.2, False), (bxyz1, bxyz2, 0.4, True))
     results["ball_query_group"] = compare_grouping(
         "ball_query_group", ball_query.ball_query_group,
-        ball_query.ball_query_group_plain, serve_cases, 1e-6)
+        ball_query.ball_query_group_plain, serve_cases, 0.0)
     results["ball_query_group_packed"] = compare_grouping(
         "ball_query_group_packed", ball_query.ball_query_group_packed,
         ball_query.ball_query_group_packed_plain, serve_cases, 0.0,
@@ -548,12 +575,6 @@ def compare_kernels(dev):
     for npoint in NLEVEL_SPEC["sa_npoints"]:
         chain.append((level, npoint))
         level = fps.fps(level, npoint)[1]
-
-    # the stage profiler's inputs: profile_stages draws them from seed 0
-    # in this order (P, Q1, Q2), which are also ab_threenn_packed.py's Q, P
-    prng = np.random.RandomState(0)
-    P64, Q1, Q2 = (torch.from_numpy(prng.rand(PROFILE_B, n, 3).astype(
-        np.float32)).to(dev) for n in (N_POINTS, 512, 128))
     results["fps"] = compare_fps_single([(cloud, 512)] + chain
                                         + [(P64, 512), (Q1, 128)])
     fps_ties_and_slices(dev)

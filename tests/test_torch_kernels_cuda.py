@@ -13,7 +13,10 @@ operation with round-to-nearest intrinsics, so indices and counts must
 be equal, not just close.  Shapes are the serving path's at B=16 and
 the large-cloud path's (N=32768) at B=1-4; FPS also at every cluster
 size, on tie-heavy grid clouds, ragged slices and at each variant's
-boundary (N up to 100003); the rank-select ball query and
+boundary (N up to 100003); the first-S ball query at every launch plan
+(`ball_query.bq_plan`'s branches and each (variant, W, staged) the
+kernel has) on ragged, boundary-heavy, all-hit, zero-hit and duplicate-
+point clouds up to N = 100003; the rank-select ball query and
 the packed 3-NN at the stage profiler's B=64, the streaming 3-NN at
 (4, 2048 <- 16384).
 """
@@ -116,7 +119,8 @@ def test_ball_query_group_matches_plain(dev, N, M, r, emit_idx):
     torch.cuda.synchronize()
     gp, cntp, idxp = ball_query.ball_query_group_plain(r, 64, xyz, q)
     assert torch.equal(cnt, cntp)
-    assert (g - gp).abs().max().item() <= 1e-6
+    # the kernel and the plain version compute the same f32 subtraction
+    assert torch.equal(g, gp)
     if emit_idx:
         assert torch.equal(idx, idxp)
     else:
@@ -429,3 +433,143 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         three_nn.three_nn_stream(xyz, xyz.double())
     with pytest.raises(ValueError, match="65536"):
         three_nn.three_nn_packed(xyz, _cloud(5, 2, 65537, dev))
+
+
+# ---- the first-S scan (csrc/ball_query.cu) at every launch plan ----------
+
+BQ_ENTRIES = ("ball_query_group", "ball_query_group_packed",
+              "ball_query_idx", "ball_query_point",
+              "ball_query_point_grouped")
+
+
+def _bq_plain(name, r, S, xyz, q):
+    """(grouped or None, cnt, idx) of the plain version of entry `name`."""
+    if name == "ball_query_group_packed":
+        return ball_query.ball_query_group_packed_plain(r, S, xyz, q)
+    g, cnt, idx = ball_query.ball_query_group_plain(r, S, xyz, q)
+    return (None if name in ("ball_query_idx", "ball_query_point") else g,
+            cnt, idx)
+
+
+def _bq_check(name, r, S, xyz, q, plan=None, emit_idx=True):
+    """One launch of entry `name` (at `plan`, else the entry's own call)
+    against the plain version: every output equal."""
+    kernel = KERNELS[name]
+    before = kernel.launches
+    if plan is None:
+        fn = getattr(ball_query, name)
+        if name in ("ball_query_group", "ball_query_group_packed"):
+            g, cnt, idx = fn(r, S, xyz, q, emit_idx)
+        elif name == "ball_query_point_grouped":
+            idx, cnt, g = fn(r, S, xyz, q)
+        else:
+            (idx, cnt), g = fn(r, S, xyz, q), None
+    else:
+        g, cnt, idx = ball_query.launch(kernel, r, S, xyz, q, emit_idx, plan)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    gp, cntp, idxp = _bq_plain(name, r, S, xyz, q)
+    assert torch.equal(cnt, cntp)
+    if idx is not None:
+        assert torch.equal(idx, idxp)
+    if gp is not None:
+        assert torch.equal(g, gp)
+    return cntp
+
+
+def _all_plans(N, S):
+    return [ball_query.Plan(v, st) for st in (True, False)
+            for v in ball_query.VARIANTS
+            if ball_query.smem_bytes(ball_query.Plan(v, st), N,
+                                     S) <= ball_query.SMEM_BYTES]
+
+
+# every plan the kernel has, each entry: a ragged cloud (no multiple of
+# a step or a tile), a query count no CTA tile divides, queries with no
+# hit and queries that fill all S slots
+@pytest.mark.parametrize("name", BQ_ENTRIES)
+def test_ball_query_every_plan_matches_plain(dev, name):
+    xyz = _cloud(40, 2, 2047, dev)
+    q = _cloud(41, 2, 37, dev)
+    q[:, :3] += 5.0
+    for plan in _all_plans(2047, 40):
+        cnt = _bq_check(name, 0.3, 40, xyz, q, plan, emit_idx=plan.staged)
+    assert (cnt[:, :3] == 0).all() and (cnt[:, 3:] == 40).any()
+
+
+# the plan's own choice at ragged N (100, 2047, 100003: the last streams)
+# and S of 1, 40 and 64
+@pytest.mark.parametrize("name", BQ_ENTRIES)
+@pytest.mark.parametrize("N", [100, 2047, 100003])
+@pytest.mark.parametrize("S", [1, 40, 64])
+def test_ball_query_plan_at_ragged_shapes(dev, name, N, S):
+    xyz = _cloud(42, 2, N, dev)
+    q = torch.cat([_cloud(43, 2, 70, dev), xyz[:, :30]], 1).contiguous()
+    _bq_check(name, 0.15, S, xyz, q)
+
+
+# the large cloud's queries at the cube's corners and edges hold an
+# eighth or a quarter of their ball: the longest scans, across tiles
+@pytest.mark.parametrize("plan", [None, ("g1u4", False), ("g4u8", False),
+                                  ("g4u4", False)])
+def test_ball_query_boundary_heavy_large_cloud(dev, plan):
+    xyz = _cloud(44, 2, 32768, dev)
+    corners = torch.tensor([[x, y, z] for x in (0.0, 1.0) for y in (0.0, 1.0)
+                            for z in (0.0, 1.0)], device=dev)
+    edges = torch.rand((2, 40, 3), generator=torch.Generator(
+        device=dev).manual_seed(45), device=dev)
+    edges[..., :2] = edges[..., :2].round()
+    q = torch.cat([corners.expand(2, 8, 3), edges, xyz[:, :80]],
+                  1).contiguous()
+    plan = plan and ball_query.Plan(*plan)
+    cnt = _bq_check("ball_query_idx", 0.2, 64, xyz, q, plan)
+    assert (cnt[:, :8] == 64).all()
+    _bq_check("ball_query_point_grouped", 0.2, 64, xyz, q, plan)
+
+
+# every point a hit (radius 5), none (queries far away), and a cloud of
+# duplicates (a 4-wide grid: 64 positions, equal distances everywhere)
+@pytest.mark.parametrize("name", BQ_ENTRIES)
+@pytest.mark.parametrize("case", ["all", "none", "duplicates"])
+def test_ball_query_degenerate_clouds(dev, name, case):
+    if case == "duplicates":
+        xyz = _grid_cloud(46, 2, 3000, 4, dev)
+        q, r = xyz[:, :50].contiguous(), 0.2
+    else:
+        xyz = _cloud(47, 2, 3000, dev)
+        q = _cloud(48, 2, 50, dev) + (10.0 if case == "none" else 0.0)
+        r = 5.0 if case == "all" else 0.3
+    for plan in (None, ball_query.Plan("g4u4", True)):
+        cnt = _bq_check(name, r, 64, xyz, q, plan)
+    assert (cnt == {"all": 64, "none": 0}.get(case, cnt)).all()
+
+
+# the packed tier where the plan streams the cloud: the prologue's
+# dequantised plane, then the scan
+@pytest.mark.parametrize("N", [32768, 100003])
+def test_ball_query_packed_streamed(dev, N):
+    assert not ball_query.bq_plan(2, N, 64, 64).staged
+    xyz = _cloud(49, 2, N, dev)
+    q = xyz[:, ::N // 64][:, :64].contiguous()
+    for emit_idx in (True, False):
+        _bq_check("ball_query_group_packed", 0.2, 64, xyz, q,
+                  emit_idx=emit_idx)
+
+
+def test_ball_query_refuses_a_plan_the_card_cannot_hold(dev):
+    # staged at N = 100003 needs 1.6 MB of shared memory: the launch is
+    # refused with the card's error, not run on another plan
+    xyz = _cloud(50, 1, 100003, dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ball_query.launch(ball_query.KERNEL, 0.2, 16, xyz, xyz[:, :8].contiguous(),
+                          True, ball_query.Plan("g1u4", True))
+
+
+# where nsample's slots crowd the staged cloud out of shared memory
+# (S = 1500 at the serving shape), the plan streams it, one query a warp
+def test_ball_query_plan_for_many_slots(dev):
+    assert ball_query.bq_plan(16, 2048, 512, 1500) == ("g1u8", False)
+    xyz = _cloud(51, 16, 2048, dev)
+    q = xyz[:, :512].contiguous()
+    _bq_check("ball_query_group", 0.8, 1500, xyz, q)
+    _bq_check("ball_query_group_packed", 0.8, 1500, xyz, q)
