@@ -1,5 +1,5 @@
-"""Sweep the first-S ball query's launch plans on the card, and time the
-five `csrc/ball_query.cu` entries of several trees in turns.
+"""Sweep the ball query's launch plans on the card, and time the six
+`csrc/ball_query.cu` entries of several trees in turns.
 
     python -m articulated_pose_tpu_torch.bq_sweep [--out FILE]
     python articulated_pose_tpu_torch/bq_sweep.py --ab ROOT [ROOT ...]
@@ -10,8 +10,9 @@ ball-query shape of the port's paths (SHAPES): device ms (median of 20
 spin-queued CUDA-event calls, `timing.cuda_time_ms`) and whether every
 output equals the plain version's; then the best plan and `bq_plan`'s.
 `bq_plan`'s rule is read off this table.  Each shape also prints the
-mean and the maximum points a query examines (its cloud up to its
-nsample-th hit, all of it with fewer hits).
+mean and the maximum points a query examines (a first-S query: its
+cloud up to its nsample-th hit, all of it with fewer hits; a bucket
+query: all of it).
 
 `--ab` times the public entries at the same shapes in one process per
 ROOT, in the order given (e.g. parent, new, new, parent), each ROOT a
@@ -22,8 +23,6 @@ without one the script exits 2.
 
 from __future__ import annotations
 
-import argparse
-import json
 import pathlib
 import sys
 
@@ -31,10 +30,15 @@ import numpy as np
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 # (entry, B, N, M, nsample, radius, emit_idx, queries, path): the queries
-# are the cloud's FPS picks, as the backbone gives them, or uniform
-# points of the cube (the stage profiler's and the entries' inputs,
-# with four queries a cloud moved out of it for B5g)
+# are the cloud's FPS picks, as the backbone gives them (for the bucket
+# tier with four a cloud moved out of it), or uniform points of the cube
+# (the stage profiler's and the entries' inputs, with four queries a
+# cloud moved out of it for B5g)
 SHAPES = (
+    ("bucket", 16, 2048, 512, 64, 0.2, False, "fps_far", "bucket B16 SA1"),
+    ("bucket", 16, 512, 128, 64, 0.4, True, "fps_far", "bucket B16 SA2"),
+    ("bucket", 64, 2048, 512, 64, 0.2, False, "fps_far", "bucket path SA1"),
+    ("bucket", 64, 512, 128, 64, 0.4, True, "fps_far", "bucket path SA2"),
     ("group", 16, 2048, 512, 64, 0.2, False, "fps", "serving SA1"),
     ("group", 16, 512, 128, 64, 0.4, True, "fps", "serving SA2"),
     ("packed", 16, 2048, 512, 64, 0.2, False, "fps", "packed serving SA1"),
@@ -68,10 +72,11 @@ def inputs(B: int, N: int, M: int, queries: str, seed: int = 0):
 
     rng = np.random.RandomState(seed)
     xyz = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32)).cuda()
-    if queries == "fps":
-        return xyz, fps.fps(xyz, M)[1]
-    q = torch.from_numpy(rng.rand(B, M, 3).astype(np.float32)).cuda()
-    if queries == "far":
+    if queries.startswith("fps"):
+        q = fps.fps(xyz, M)[1]
+    else:
+        q = torch.from_numpy(rng.rand(B, M, 3).astype(np.float32)).cuda()
+    if queries.endswith("far"):
         q[:, :4] += 10.0
     return xyz, q
 
@@ -84,6 +89,8 @@ def public_entry(entry: str):
     return {
         "group": lambda r, s, x, q, e: bq.ball_query_group(r, s, x, q, e),
         "packed": lambda r, s, x, q, e: bq.ball_query_group_packed(
+            r, s, x, q, e),
+        "bucket": lambda r, s, x, q, e: bq.ball_query_group_bucket(
             r, s, x, q, e),
         "idx": lambda r, s, x, q, e: bq.ball_query_idx(r, s, x, q),
         "point": lambda r, s, x, q, e: bq.ball_query_point(r, s, x, q),
@@ -117,18 +124,21 @@ def sweep() -> list:
 
     kernels = {"group": bq.KERNEL, "packed": bq.PACKED_KERNEL,
                "idx": bq.IDX_KERNEL, "point": bq.POINT_KERNEL,
-               "point_grouped": bq.POINT_GROUPED_KERNEL}
+               "point_grouped": bq.POINT_GROUPED_KERNEL,
+               "bucket": bq.BUCKET_KERNEL}
+    plains = {"packed": bq.ball_query_group_packed_plain,
+              "bucket": bq.ball_query_group_bucket_plain}
     rows = []
     for entry, B, N, M, S, r, emit, queries, path in SHAPES:
         xyz, q = inputs(B, N, M, queries)
-        plain = (bq.ball_query_group_packed_plain if entry == "packed"
-                 else bq.ball_query_group_plain)
-        gp, cntp, idxp = plain(r, S, xyz, q)
-        mean, most = examined(idxp, cntp, N)
+        bucket = entry == "bucket"
+        gp, cntp, idxp = plains.get(entry, bq.ball_query_group_plain)(
+            r, S, xyz, q)
+        mean, most = (N, N) if bucket else examined(idxp, cntp, N)
         kernel = kernels[entry]
         configs = []
         for plan in plans():
-            if bq.smem_bytes(plan, N, S) > bq.SMEM_BYTES:
+            if bq.smem_bytes(plan, N, S, bucket) > bq.SMEM_BYTES:
                 continue
 
             def call(plan=plan):
@@ -148,7 +158,7 @@ def sweep() -> list:
                                 device_only=device_only))
         timed = [c for c in configs if "ms" in c]
         best = min(timed, key=lambda c: c["ms"])
-        plan = list(bq.bq_plan(B, N, M, S))
+        plan = list(bq.bq_plan(B, N, M, S, bucket))
         planned = next(c["ms"] for c in timed if c["plan"] == plan)
         rows.append(dict(shape=label(entry, B, N, M, S, r), path=path,
                          examined_mean=mean, examined_max=most, plan=plan,
@@ -186,35 +196,9 @@ def arm() -> dict:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--ab", nargs="+", metavar="ROOT",
-                   help="time the ball-query entries of each checkout, in "
-                        "order")
-    p.add_argument("--arm", metavar="ROOT", help=argparse.SUPPRESS)
-    p.add_argument("--out", help="write the readings here as JSON")
-    args = p.parse_args(argv)
-    if args.arm:
-        # this process times the package of the checkout at ROOT
-        sys.path.insert(0, args.arm)
-    import torch
+    from articulated_pose_tpu_torch.timing import sweep_main
 
-    if not torch.cuda.is_available():
-        print("bq_sweep: no CUDA device", file=sys.stderr)
-        return 2
-    if args.arm:
-        print(json.dumps(arm()), flush=True)
-        return 0
-    from articulated_pose_tpu_torch.timing import card_line, run_arms
-
-    result = {"card": card_line()}
-    print(f"[card] {result['card']}", flush=True)
-    if args.ab:
-        result["ab"] = run_arms(__file__, args.ab)
-    else:
-        result["sweep"] = sweep()
-    if args.out:
-        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
-    return 0
+    return sweep_main(argv, __file__, __doc__, sweep, arm)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-// Ball query: three entry points over one first-S scan.
+// Ball query: four entry points over one scan.
 //
 // 1. ball_query_group_launch (K2) replaces the TPU kernel
 //    articulated_pose_tpu/ops/pallas/ball_query_butterfly.py::
@@ -14,6 +14,15 @@
 // 3. ball_query_idx_launch replaces articulated_pose_tpu/ops/pallas/
 //    ball_query_stream.py::query_ball_point_stream (body _kernel): idx and
 //    cnt only, for clouds of any size the int32 index covers.
+// 4. ball_query_bucket_launch (B8) replaces articulated_pose_tpu/ops/
+//    pallas/ball_query_bucket.py::query_ball_group_bucket (body
+//    _ballq_bucket_kernel), the "bucket" tier: with n_pad = ceil(N / 128)
+//    * 128 and W = n_pad / nsample a power of two, slot j holds the FIRST
+//    hit among points [j W, (j + 1) W); an empty bucket repeats the
+//    cloud's first hit; cnt = min(every hit, nsample); a selected offset
+//    p - q is rounded to nearest-even bf16 and returned as f32 (the TPU
+//    carried it through a bf16 matmul); with no hit at all every slot is
+//    point 0, its offset unrounded.
 //
 // The rank-select kernels of articulated_pose_tpu/ops/pallas/ball_query.py
 // compute the same functions: query_ball_point_pallas (_ballq_kernel) is
@@ -67,7 +76,25 @@
 // every path shape, the large cloud's included (PERF.md section 6).  The
 // launch plan (variant (G, U), staged or streamed) comes from the shapes
 // alone: ops/kernels/ball_query.py::bq_plan.
+//
+// The bucket tier is the same scan with a fourth epilogue.  Unlike the
+// first-S tiers, every query must examine its whole cloud (cnt counts
+// every hit, and each bucket needs its own first hit), so the scan never
+// stops early, and the hit bitmap of the cloud is exactly what the
+// epilogue needs: one lane a slot takes the lowest set bit of its
+// bucket's bits (W >= 32: whole words; W < 32: a masked word), an empty
+// bucket -1; a last pass gives the empty ones the lowest filled slot's
+// point, which is the cloud's first hit.  Where the cloud streams, a
+// tile's buckets are settled after the tile, and a bucket wider than a
+// tile keeps the hit an earlier tile gave it (its slot is the flag).
+// The first design (one warp per query over device memory, three strided
+// loads and |p|^2 a pair, a step's ballot deciding the bucket's state
+// before the next load, 12-byte scalar stores) ran at 18-30x its bound.
+// The hit test is in_ball: its fma(-2, inner, q2 + p2) equals the TPU
+// kernel's (q2 + p2) - 2 inner bit for bit, because 2 inner is exact.
 
+#include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -99,6 +126,7 @@ struct Args {
   int staged;            // the whole cloud in shared memory
   int packed;            // grouped rows dequantised from the staged cloud
   int tile_pts;          // points of the shared tile (padded)
+  int w_log2;            // the bucket tier: log2 of its bucket width W
 };
 
 __device__ __forceinline__ float sqnorm(float x, float y, float z) {
@@ -223,6 +251,61 @@ __device__ __forceinline__ void extract(const unsigned* words, int nw,
   }
 }
 
+// The bucket tier's slots from one scanned stretch of the cloud: points
+// [t0, t0 + span), whose hit bitmap is words[0, nw) (the points past
+// 32 nw were not scanned and hold no hit).  Slot s owns the points
+// [s W, (s + 1) W), W = 2^w_log2.  A bucket that starts in the stretch
+// takes its first hit here, or -1 (empty so far); one that started in an
+// earlier stretch (W > span) takes this stretch's first hit only while
+// it is still empty.  One lane a slot.
+__device__ __forceinline__ void settle(const unsigned* words, int nw,
+                                       unsigned t0, int span, int w_log2,
+                                       int nsample, int* slots, int lane) {
+  const unsigned end = t0 + 32u * nw;
+  const int s_end = min(nsample,
+                        static_cast<int>(((t0 + span - 1) >> w_log2) + 1));
+  for (int s = static_cast<int>(t0 >> w_log2) + lane; s < s_end; s += 32) {
+    const unsigned b0 = static_cast<unsigned>(s) << w_log2;
+    const unsigned lo = max(b0, t0) - t0;                   // local bits
+    const unsigned hi = min(b0 + (1u << w_log2), end) - t0;
+    int k = -1;
+    for (unsigned w = lo >> 5; lo < hi && 32u * w < hi && k < 0; ++w) {
+      unsigned bits = words[w];
+      if (32u * w < lo) bits &= ~0u << (lo - 32u * w);
+      if (hi - 32u * w < 32u) bits &= (1u << (hi - 32u * w)) - 1u;
+      if (bits != 0u) k = static_cast<int>(t0 + 32u * w + __ffs(bits) - 1);
+    }
+    if (b0 >= t0) {
+      slots[s] = k;                 // the bucket starts in this stretch
+    } else if (k >= 0 && slots[s] < 0) {
+      slots[s] = k;
+    }
+  }
+}
+
+// The bucket tier's last pass over a query's slots: an empty one (-1)
+// takes the lowest filled slot's point, which is the cloud's first hit;
+// with no hit at all every slot takes point 0.  Returns whether the
+// query has a hit.  One warp.
+__device__ __forceinline__ bool fill_empty(int* slots, int nsample,
+                                           int lane) {
+  int first = -1;
+  for (int s0 = 0; s0 < nsample && first < 0; s0 += 32) {
+    const int s = s0 + lane;
+    const int k = s < nsample ? slots[s] : -1;
+    const unsigned found = __ballot_sync(0xffffffffu, k >= 0);
+    if (found != 0u) first = __shfl_sync(0xffffffffu, k, __ffs(found) - 1);
+  }
+  for (int s = lane; s < nsample; s += 32) {
+    if (slots[s] < 0) slots[s] = max(first, 0);
+  }
+  return first >= 0;
+}
+
+__device__ __forceinline__ float to_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // A streamed tile's points, one register triple per point of this thread
 __device__ __forceinline__ void load_tile(const float* pts, unsigned un,
                                           unsigned t0,
@@ -297,18 +380,24 @@ __device__ __forceinline__ float dequantise(float p, const float* box,
 // One CTA: queries [m0, m0 + qc) of cloud b, qc = 8 G, G a warp.
 // Shared memory (dynamic): the tile (float4 a point), the hit bitmaps
 // (qc rows of tile / 32 words), the slots (qc rows of nsample), the
-// queries (qc x 3) and the packed tier's box (9).
-template <bool kGrouped, int G, int U>
+// queries (qc x 3), the packed tier's box (9) and, for the bucket tier,
+// whether each query has a hit (qc).
+template <bool kGrouped, bool kBucket, int G, int U>
 __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
+  static_assert(kGrouped || !kBucket, "the bucket tier is grouped");
   extern __shared__ float4 smem[];
   const int qc = kWarps * G;
   const int S = a.nsample;
+  // a query is full at `stop` hits: never in the bucket tier, whose
+  // count and buckets need the whole cloud
+  const int stop = kBucket ? INT_MAX : S;
   const int nwords = a.tile_pts / 32;
   float4* cloud = smem;
   unsigned* sbits = reinterpret_cast<unsigned*>(cloud + a.tile_pts);
   int* sidx = reinterpret_cast<int*>(sbits + qc * nwords);
   float* sq = reinterpret_cast<float*>(sidx + qc * S);
   float* box = sq + 3 * qc;
+  int* shit = reinterpret_cast<int*>(box + 9);
 
   const int tiles_m = (a.m + qc - 1) / qc;
   const int b = blockIdx.x / tiles_m;
@@ -339,7 +428,7 @@ __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
       }
     } else {
       qx[g] = qy[g] = qz[g] = q2[g] = CUDART_NAN_F;
-      cnt[g] = S;  // no query here: full from the start
+      cnt[g] = stop;  // no query here: full from the start
     }
   }
 
@@ -356,12 +445,18 @@ __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
       }
     }
     __syncthreads();
-    const int end = scan<G, U>(cloud, a.tile_pts, lane, S, a.r2, qx, qy, qz,
-                               q2, cnt, my_bits, nwords);
+    const int end = scan<G, U>(cloud, a.tile_pts, lane, stop, a.r2, qx, qy,
+                               qz, q2, cnt, my_bits, nwords);
     __syncwarp();
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      extract(my_bits + g * nwords, end / 32, 0u, 0, S, my_idx + g * S, lane);
+      if constexpr (kBucket) {
+        settle(my_bits + g * nwords, end / 32, 0u, a.tile_pts, a.w_log2, S,
+               my_idx + g * S, lane);
+      } else {
+        extract(my_bits + g * nwords, end / 32, 0u, 0, S, my_idx + g * S,
+                lane);
+      }
     }
   } else {
     constexpr int kStep = 32 * U;
@@ -383,17 +478,22 @@ __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
       int have[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) have[g] = cnt[g];
-      const int end = scan<G, U>(cloud, count, lane, S, a.r2, qx, qy, qz, q2,
-                                 cnt, my_bits, nwords);
+      const int end = scan<G, U>(cloud, count, lane, stop, a.r2, qx, qy, qz,
+                                 q2, cnt, my_bits, nwords);
       __syncwarp();
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        extract(my_bits + g * nwords, end / 32, t0, have[g], S,
-                my_idx + g * S, lane);
+        if constexpr (kBucket) {
+          settle(my_bits + g * nwords, end / 32, t0, kTile, a.w_log2, S,
+                 my_idx + g * S, lane);
+        } else {
+          extract(my_bits + g * nwords, end / 32, t0, have[g], S,
+                  my_idx + g * S, lane);
+        }
       }
       bool full = true;
 #pragma unroll
-      for (int g = 0; g < G; ++g) full = full && cnt[g] >= S;
+      for (int g = 0; g < G; ++g) full = full && cnt[g] >= stop;
       // also keeps the next tile's stores off this tile and its bitmaps
       const int all_full = __syncthreads_and(full);
       if (all_full || !more) break;
@@ -401,15 +501,21 @@ __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
   }
   __syncthreads();
 
-  // slots past the count take the first hit (point 0 without one)
+  // slots past the count (the bucket tier: empty buckets) take the first
+  // hit (point 0 without one)
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const int ql = warp * G + g;
     if (ql < qv) {
       const int c = min(cnt[g], S);
       int* slots = sidx + ql * S;
-      const int first = c > 0 ? slots[0] : 0;
-      for (int s = c + lane; s < S; s += 32) slots[s] = first;
+      if constexpr (kBucket) {
+        const bool hit = fill_empty(slots, S, lane);
+        if (lane == 0) shit[ql] = hit;
+      } else {
+        const int first = c > 0 ? slots[0] : 0;
+        for (int s = c + lane; s < S; s += 32) slots[s] = first;
+      }
       if (lane == 0) a.cnt[row0 + ql] = c;
     }
   }
@@ -442,7 +548,9 @@ __global__ void __launch_bounds__(kThreads) ball_query_kernel(const Args a) {
         } else {
           p = __ldg(src + 3 * static_cast<size_t>(k) + c);
         }
-        return __fsub_rn(p, q[c]);
+        const float d = __fsub_rn(p, q[c]);
+        // the bucket tier rounds a selected point's offset to bf16
+        return kBucket && shit[ql] ? to_bf16(d) : d;
       };
       float* out = a.grouped + (row0 + ql) * row;
       if (vec) {
@@ -534,17 +642,19 @@ constexpr int kVariantU[] = {BQ_VARIANTS(BQ_U)};
 #undef BQ_U
 constexpr int kVariants = sizeof(kVariantG) / sizeof(kVariantG[0]);
 
-template <bool kGrouped>
+template <bool kGrouped, bool kBucket>
 KernelFn kernel_for(int variant) {
-#define BQ_FN(g, u) &ball_query_kernel<kGrouped, g, u>,
+#define BQ_FN(g, u) &ball_query_kernel<kGrouped, kBucket, g, u>,
   static const KernelFn table[] = {BQ_VARIANTS(BQ_FN)};
 #undef BQ_FN
   return table[variant];
 }
 
+enum Tier { kIdxTier, kGroupTier, kBucketTier };
+
 // One launch of the scan at (variant, staged); a plan the card
 // refuses (too much shared memory, too many CTAs) returns its error.
-int launch(bool grouped, int variant, int staged, int packed, Args a,
+int launch(Tier tier, int variant, int staged, int packed, Args a,
            cudaStream_t stream) {
   if (variant < 0 || variant >= kVariants ||
       a.batch < 1 ||
@@ -557,7 +667,8 @@ int launch(bool grouped, int variant, int staged, int packed, Args a,
   const long long step = 32LL * U;
   const long long tile_pts = staged ? (a.n + step - 1) / step * step : kTile;
   const long long bytes = 16 * tile_pts + 4 * (qc * (tile_pts / 32)) +
-                          4 * (qc * a.nsample) + 4 * (3 * qc) + 4 * 9;
+                          4 * (qc * a.nsample) + 4 * (3 * qc) + 4 * 9 +
+                          (tier == kBucketTier ? 4 * qc : 0);
   const long long blocks = static_cast<long long>(a.batch) *
                            ((a.m + qc - 1) / qc);
   if (bytes > (1LL << 30) || blocks > 0x7fffffffLL) {
@@ -566,8 +677,9 @@ int launch(bool grouped, int variant, int staged, int packed, Args a,
   a.staged = staged;
   a.packed = packed;
   a.tile_pts = static_cast<int>(tile_pts);
-  const KernelFn fn = grouped ? kernel_for<true>(variant)
-                              : kernel_for<false>(variant);
+  const KernelFn fn = tier == kBucketTier  ? kernel_for<true, true>(variant)
+                      : tier == kGroupTier ? kernel_for<true, false>(variant)
+                                           : kernel_for<false, false>(variant);
   if (static_cast<size_t>(bytes) > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(fn),
@@ -611,10 +723,27 @@ int ball_query_group_launch(int variant, int staged,
                             int n, int m, int nsample, float r2,
                             float* grouped, int* cnt, int* idx,
                             cudaStream_t stream) {
-  return launch(true, variant, staged, 0,
+  return launch(kGroupTier, variant, staged, 0,
                 make_args(xyz, xyz, new_xyz, batch, n, m, nsample, r2,
                           grouped, cnt, idx),
                 stream);
+}
+
+// The bucket tier, W = 2^w_log2 points a slot; the caller keeps
+// nsample * W = ceil(n / 128) * 128.  idx may be null.
+int ball_query_bucket_launch(int variant, int staged, const float* xyz,
+                             const float* new_xyz, int batch, int n, int m,
+                             int nsample, int w_log2, float r2,
+                             float* grouped, int* cnt, int* idx,
+                             cudaStream_t stream) {
+  if (w_log2 < 0 || w_log2 > 30 ||
+      (static_cast<long long>(nsample) << w_log2) < n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a = make_args(xyz, xyz, new_xyz, batch, n, m, nsample, r2, grouped,
+                     cnt, idx);
+  a.w_log2 = w_log2;
+  return launch(kBucketTier, variant, staged, 0, a, stream);
 }
 
 // A staged launch dequantises in the scan's epilogue (deq unused, may be
@@ -633,7 +762,7 @@ int ball_query_group_packed_launch(int variant, int staged,
     if (err != cudaSuccess) return static_cast<int>(err);
     coords = deq;
   }
-  return launch(true, variant, staged, staged,
+  return launch(kGroupTier, variant, staged, staged,
                 make_args(xyz, coords, new_xyz, batch, n, m, nsample, r2,
                           grouped, cnt, idx),
                 stream);
@@ -645,7 +774,7 @@ int ball_query_idx_launch(int variant, int staged, const float* xyz,
                           int nsample, float r2, int* cnt, int* idx,
                           cudaStream_t stream) {
   if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(false, variant, staged, 0,
+  return launch(kIdxTier, variant, staged, 0,
                 make_args(xyz, xyz, new_xyz, batch, n, m, nsample, r2,
                           nullptr, cnt, idx),
                 stream);

@@ -22,8 +22,6 @@ needs a CUDA device; without one the script exits 2.
 
 from __future__ import annotations
 
-import argparse
-import json
 import pathlib
 import sys
 
@@ -141,34 +139,9 @@ def arm() -> dict:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--ab", nargs="+", metavar="ROOT",
-                   help="time the FPS entries of each checkout, in order")
-    p.add_argument("--arm", metavar="ROOT", help=argparse.SUPPRESS)
-    p.add_argument("--out", help="write the readings here as JSON")
-    args = p.parse_args(argv)
-    if args.arm:
-        # this process times the package of the checkout at ROOT
-        sys.path.insert(0, args.arm)
-    import torch
+    from articulated_pose_tpu_torch.timing import sweep_main
 
-    if not torch.cuda.is_available():
-        print("fps_sweep: no CUDA device", file=sys.stderr)
-        return 2
-    if args.arm:
-        print(json.dumps(arm()), flush=True)
-        return 0
-    from articulated_pose_tpu_torch.timing import card_line, run_arms
-
-    result = {"card": card_line()}
-    print(f"[card] {result['card']}", flush=True)
-    if args.ab:
-        result["ab"] = run_arms(__file__, args.ab)
-    else:
-        result["sweep"] = sweep()
-    if args.out:
-        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
-    return 0
+    return sweep_main(argv, __file__, __doc__, sweep, arm)
 
 
 if __name__ == "__main__":

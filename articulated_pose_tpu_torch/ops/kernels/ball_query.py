@@ -1,4 +1,4 @@
-"""Ball query: six kernel entries over two sources, with their plain versions.
+"""Ball query: six kernel entries over one source, with their plain versions.
 
 - `ball_query_group` (K2) replaces `articulated_pose_tpu/ops/pallas/
   ball_query_butterfly.py::query_ball_group_pallas` (exact transposed body
@@ -22,16 +22,16 @@
   hit of the j-th of S equal buckets of the padded cloud, its offset
   rounded to bf16; cnt counts every hit.
 
-The first five run `csrc/ball_query.cu`: a CTA of eight warps answers
-8 G queries of one cloud, staged whole in shared memory (or streamed
-through it in 2048-point tiles); each warp scans in index order for its
-G queries, U points a lane a step, keeps the ballots as hit bitmaps and
-stops once every query has nsample hits; the bitmaps give the slots in
-order.  `bq_plan` picks the launch (variant (G, U), staged or streamed)
-from the shapes alone.  B8 runs
-`csrc/ball_query_bucket.cu`: a warp scan over the whole cloud, one
-first-set-bit per bucket.  The sources say what bounds them.  A CPU
-tensor takes the `*_plain` version; a CUDA tensor takes the kernel.
+All six run `csrc/ball_query.cu`: a CTA of eight warps answers 8 G
+queries of one cloud, staged whole in shared memory (or streamed through
+it in 2048-point tiles); each warp scans in index order for its G
+queries, U points a lane a step, and keeps the ballots as hit bitmaps.
+The first-S tiers stop once every query has nsample hits and rank the
+bitmaps' first nsample hits into the slots; the bucket tier scans the
+whole cloud and takes the lowest set bit of each bucket.  `bq_plan`
+picks the launch (variant (G, U), staged or streamed) from the shapes
+alone.  The source says what bounds them.  A CPU tensor takes the
+`*_plain` version; a CUDA tensor takes the kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +62,9 @@ SMEM_BYTES = 232448 - 1024
 # 6): stage the cloud up to STAGE_POINTS (at 8192 points streaming won);
 # four queries a warp from MANY_QUERIES queries a launch, one below it
 # (where four a warp leave too few CTAs to fill the card); four points a
-# lane a step where the cloud is staged, eight where it streams
+# lane a step where the cloud is staged, eight where it streams, and
+# eight for the bucket tier's four queries a warp, which scan their whole
+# cloud (2-3 % faster at its SA1)
 STAGE_POINTS = 2048
 MANY_QUERIES = 8192
 
@@ -76,28 +78,33 @@ def queries_per_cta(plan: Plan) -> int:
     return CTA_WARPS * VARIANTS[plan.variant][0]
 
 
-def smem_bytes(plan: Plan, N: int, nsample: int) -> int:
+def smem_bytes(plan: Plan, N: int, nsample: int, bucket: bool = False) -> int:
     """The launch's dynamic shared memory, as csrc/ball_query.cu sizes it:
-    the tile, the hit bitmaps, the slots, the queries and the box."""
+    the tile, the hit bitmaps, the slots, the queries, the box and, for
+    the bucket tier, a hit flag a query."""
     step = 32 * VARIANTS[plan.variant][1]
     tile = -(-N // step) * step if plan.staged else TILE_POINTS
     qc = queries_per_cta(plan)
-    return 16 * tile + 4 * qc * (tile // 32 + nsample + 3) + 4 * 9
+    return (16 * tile + 4 * qc * (tile // 32 + nsample + 3 + int(bucket))
+            + 4 * 9)
 
 
-def bq_plan(B: int, N: int, M: int, nsample: int) -> Plan:
-    """The launch for B clouds of N points, M queries each, nsample slots,
-    by the rule above.  Needs no library, so the CPU tests reach it.
-    Raises ValueError where no launch holds nsample slots."""
+def bq_plan(B: int, N: int, M: int, nsample: int,
+            bucket: bool = False) -> Plan:
+    """The launch for B clouds of N points, M queries each, nsample slots
+    (`bucket`: of the bucket tier), by the rule above.  Needs no library,
+    so the CPU tests reach it.  Raises ValueError where no launch holds
+    nsample slots."""
     if min(B, N, M, nsample) < 1:
         raise ValueError(f"bq_plan: need B, N, M, nsample > 0, got B={B}, "
                          f"N={N}, M={M}, nsample={nsample}")
     G = 4 if B * M >= MANY_QUERIES else 1
+    U = 8 if bucket and G == 4 else 4
     # where nsample's slots crowd the staged cloud out of shared memory,
     # stream it, with one query a warp if need be
-    for plan in ((Plan(f"g{G}u4", True),) if N <= STAGE_POINTS else ()) + (
+    for plan in ((Plan(f"g{G}u{U}", True),) if N <= STAGE_POINTS else ()) + (
             Plan(f"g{G}u8", False), Plan("g1u8", False)):
-        if smem_bytes(plan, N, nsample) <= SMEM_BYTES:
+        if smem_bytes(plan, N, nsample, bucket) <= SMEM_BYTES:
             return plan
     raise ValueError(f"bq_plan: nsample={nsample} slots do not fit a CTA's "
                      "shared memory")
@@ -112,8 +119,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         P, P, I, I, I, I, F, P, P, P, P, P]
     lib.ball_query_idx_launch.argtypes = plan + [P, P, I, I, I, I, F, P, P,
                                                  P]
+    lib.ball_query_bucket_launch.argtypes = plan + [P, P, I, I, I, I, I, F,
+                                                    P, P, P, P]
     for fn in (lib.ball_query_group_launch, lib.ball_query_group_packed_launch,
-               lib.ball_query_idx_launch):
+               lib.ball_query_idx_launch, lib.ball_query_bucket_launch):
         fn.restype = I
     lib.ball_query_error_string.argtypes = [I]
     lib.ball_query_error_string.restype = ctypes.c_char_p
@@ -134,10 +143,13 @@ POINT_KERNEL = CudaKernel(
 POINT_GROUPED_KERNEL = CudaKernel(
     "ball_query_point_grouped", "ball_query.cu",
     "articulated_pose_tpu/ops/pallas/ball_query.py:194", _bind)
+BUCKET_KERNEL = CudaKernel(
+    "ball_query_group_bucket", "ball_query.cu",
+    "articulated_pose_tpu/ops/pallas/ball_query_bucket.py:146", _bind)
 # which of the source's entries each kernel launches
 _TIER = {KERNEL.name: "group", POINT_GROUPED_KERNEL.name: "group",
          PACKED_KERNEL.name: "packed", IDX_KERNEL.name: "idx",
-         POINT_KERNEL.name: "idx"}
+         POINT_KERNEL.name: "idx", BUCKET_KERNEL.name: "bucket"}
 
 
 def _r2(radius: float) -> float:
@@ -164,12 +176,14 @@ def launch(kernel: CudaKernel, radius: float, nsample: int,
            xyz: torch.Tensor, new_xyz: torch.Tensor, emit_idx: bool = True,
            plan: Plan = None):
     """One launch of csrc/ball_query.cu's entry for `kernel` (grouped,
-    packed or idx only) at `plan` (bq_plan's when None), counted on
-    `kernel`: (grouped or None, cnt, idx or None).  A launch the card
+    packed, idx only or bucket) at `plan` (bq_plan's when None), counted
+    on `kernel`: (grouped or None, cnt, idx or None).  A launch the card
     refuses raises with its error text."""
-    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
     tier = _TIER[kernel.name]
-    plan = plan or bq_plan(B, N, M, nsample)
+    if tier == "bucket":
+        W = core.bucket_width(xyz.shape[1], nsample)
+    B, N, M = _check(kernel.name, xyz, new_xyz, nsample)
+    plan = plan or bq_plan(B, N, M, nsample, tier == "bucket")
     if plan.variant not in VARIANTS:
         raise ValueError(f"{kernel.name}: unknown plan {plan}")
     lib = kernel.lib()
@@ -188,6 +202,9 @@ def launch(kernel: CudaKernel, radius: float, nsample: int,
             rc = lib.ball_query_idx_launch(*args, *out)
         elif tier == "group":
             rc = lib.ball_query_group_launch(*args, ptr(grouped), *out)
+        elif tier == "bucket":
+            rc = lib.ball_query_bucket_launch(*args[:-1], W.bit_length() - 1,
+                                              args[-1], ptr(grouped), *out)
         else:
             # the dequantised plane, only where the cloud streams
             deq = (None if plan.staged else
@@ -291,19 +308,6 @@ def ball_query_point(radius: float, nsample: int, xyz: torch.Tensor,
     return idx, cnt
 
 
-def _bind_bucket(lib: ctypes.CDLL) -> None:
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.ball_query_bucket_launch.argtypes = [P, P, I, I, I, I, I,
-                                             ctypes.c_float, P, P, P, P]
-    lib.ball_query_bucket_launch.restype = I
-    lib.ball_query_bucket_error_string.argtypes = [I]
-    lib.ball_query_bucket_error_string.restype = ctypes.c_char_p
-
-
-BUCKET_KERNEL = CudaKernel(
-    "ball_query_group_bucket", "ball_query_bucket.cu",
-    "articulated_pose_tpu/ops/pallas/ball_query_bucket.py:146", _bind_bucket)
-
 ball_query_group_bucket_plain = core.query_ball_group_bucket_plain
 
 
@@ -315,22 +319,8 @@ def ball_query_group_bucket(radius: float, nsample: int, xyz: torch.Tensor,
     [j·W, (j+1)·W), its offset rounded to bf16 (`core.
     query_ball_group_bucket_plain` states the semantics).  Raises
     ValueError unless ceil(N/128)·128 / S is a whole power of two."""
-    W = core.bucket_width(xyz.shape[1], nsample)
+    core.bucket_width(xyz.shape[1], nsample)
     if xyz.device.type == "cpu":
         return ball_query_group_bucket_plain(radius, nsample, xyz, new_xyz,
                                              emit_idx)
-    B, N, M = _check("ball_query_group_bucket", xyz, new_xyz, nsample)
-    lib = BUCKET_KERNEL.lib()
-    dev = xyz.device
-    grouped = torch.empty((B, M, nsample, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((B, M), dtype=torch.int32, device=dev)
-    idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=dev)
-           if emit_idx else None)
-    with torch.cuda.device(dev):
-        rc = lib.ball_query_bucket_launch(
-            ptr(xyz), ptr(new_xyz), B, N, M, nsample, W.bit_length() - 1,
-            _r2(radius), ptr(grouped), ptr(cnt),
-            ptr(idx) if emit_idx else None, stream_of(xyz))
-    check_rc(BUCKET_KERNEL, rc, lib.ball_query_bucket_error_string)
-    BUCKET_KERNEL.launches += 1
-    return grouped, cnt, idx
+    return launch(BUCKET_KERNEL, radius, nsample, xyz, new_xyz, emit_idx)

@@ -10,8 +10,9 @@ No PyTorch header is compiled, so a build takes seconds.
 `CudaKernel` also carries the launch counter that the wrappers bump each
 time they launch the kernel: a run can show that its path went through
 the kernel and not through the plain version.  Several kernels may share
-one source (the three ball-query tiers share `ball_query.cu`): its
-library is built once, and the loader maps it once for all of them.
+one source (the six ball-query entries share `ball_query.cu`, the
+three 3-NN entries `three_nn.cu`): its library is built once, and the
+loader maps it once for all of them.
 """
 
 from __future__ import annotations

@@ -1,13 +1,15 @@
 """Device timing on the card: spin-queued CUDA events, the profiler's
 device time and op count, the roofline bound of a kernel's work, the
-card's name and power limit, and the A/B runner of the sweep scripts
-(`fps_sweep.py`, `bq_sweep.py`), which times several checkouts in turns.
+card's name and power limit, and the command line of the sweep scripts
+(`fps_sweep.py`, `bq_sweep.py`, `nn_sweep.py`) with its A/B runner,
+which times several checkouts in turns.
 
 Every function here needs a CUDA device; none falls back to the host.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import statistics
@@ -150,3 +152,39 @@ def run_arms(script: str, roots) -> list:
         print(f"[ab] {root}: " + ", ".join(f"{k} {v:.4f}" for k, v in
                                            times.items()), flush=True)
     return runs
+
+
+def sweep_main(argv, script: str, doc: str, sweep: Callable[[], list],
+               arm: Callable[[], dict]) -> int:
+    """The command line of a sweep script: the sweep (`sweep()`'s rows),
+    `--ab ROOT ...` (`arm()` in one process per ROOT, `run_arms`), and
+    `--out FILE` for the readings as JSON.  `--arm ROOT` is one such
+    process: it drops this package from the module cache and puts ROOT
+    first on sys.path, so that `arm()`'s imports load ROOT's package and
+    build ROOT's kernels.  Without a CUDA device it exits 2."""
+    name = pathlib.Path(script).stem
+    p = argparse.ArgumentParser(prog=name, description=doc.split("\n\n")[0])
+    p.add_argument("--ab", nargs="+", metavar="ROOT",
+                   help="time the entries of each checkout, in order")
+    p.add_argument("--arm", metavar="ROOT", help=argparse.SUPPRESS)
+    p.add_argument("--out", help="write the readings here as JSON")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print(f"{name}: no CUDA device", file=sys.stderr)
+        return 2
+    if args.arm:
+        package = __name__.split(".")[0]
+        for mod in [m for m in sys.modules if m.split(".")[0] == package]:
+            del sys.modules[mod]
+        sys.path.insert(0, str(pathlib.Path(args.arm).resolve()))
+        print(json.dumps(arm()), flush=True)
+        return 0
+    result = {"card": card_line()}
+    print(f"[card] {result['card']}", flush=True)
+    if args.ab:
+        result["ab"] = run_arms(script, args.ab)
+    else:
+        result["sweep"] = sweep()
+    if args.out:
+        pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
+    return 0

@@ -14,14 +14,16 @@ is non-zero):
    the shapes its paths give it: the serving path's (B=16, N=2048), the
    large-cloud path's (B=4, N=32768), the N-level path's (B=8,
    N=8192 -> 1024 -> 256 -> 64 -> 16), the stage profiler's (B=64,
-   N=2048 -> 512 -> 128), bench.py's (B3 and B3p at B=64) and the kernel
-   entries' (B5g at B=64; B7 at (4, 2048 <- 16384) and (4, 2048 <-
-   3000); B9 at (64, 2048 <- 512)): exact indices, counts and grouped
-   coordinates (the B5g and bucket tiers' queries include some moved out
-   of the cloud); 3-NN distances within 1e-6 relative (B7 equal; B9's
+   N=2048 -> 512 -> 128), bench.py's and the bucket path's (B3, B3p, B8
+   and K3 at B=64) and the kernel entries' (B5g at B=64; B7 at (4,
+   2048 <- 16384) and (4, 2048 <- 3000); B9 at (64, 2048 <- 512)): exact
+   indices, counts and grouped coordinates (the B5g and bucket tiers'
+   queries include some moved out of the cloud); 3-NN distances within
+   1e-6 relative (B7 equal, with a tie across two lanes' slices; B9's
    within one key quantum, with the entries that differ counted).  Each
-   first-S ball-query shape prints its launch plan (`bq_plan`) and the
-   points a query examined, mean and max.
+   ball-query and 3-NN shape prints its launch plan (`bq_plan`,
+   `nn_plan`); each first-S ball-query shape also the points a query
+   examined, mean and max.
    B9 is also read against K3 as scripts/ab_threenn_packed.py reads the
    TPU kernels, with the bounds of tests/test_pallas_tpu.py.  Both FPS
    kernels also run at every cluster size on tie-heavy grid clouds and
@@ -369,9 +371,9 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
     coord_bound.  The emit_idx=False launch must give the same
     coordinates and counts.  The bound counts the points each query has
     to examine: up to its 64th hit, or the whole cloud (`whole_cloud`,
-    the bucket tier); `point_flops` per point of the cloud.  The first-S
-    tiers also print their launch plan and the points examined per
-    query, mean and max."""
+    the bucket tier); `point_flops` per point of the cloud.  Each shape
+    also prints its launch plan and, for the first-S tiers, the points
+    examined per query, mean and max."""
     from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
 
     err, times, shapes, bounds = 0.0, [], [], []
@@ -390,7 +392,10 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
         B, N = pts.shape[:2]
         M = q.shape[1]
         if whole_cloud:
-            pairs, scan = B * M * N, f"{N} points examined per query"
+            plan = bq_plan(B, N, M, 64, bucket=True)
+            pairs = B * M * N
+            scan = (f"{N} points examined per query; plan {plan.variant} "
+                    f"{'staged' if plan.staged else 'streamed'}")
         else:
             pairs, most = scanned_points(idxp, cntp, N)
             scan = bq_note(pairs, most, B * M, bq_plan(B, N, M, 64))
@@ -448,9 +453,17 @@ def nn_bound(a, b, *outputs):
                  *outputs)
 
 
+def nn_note(a, b, packed=False) -> str:
+    from articulated_pose_tpu_torch.ops.kernels.three_nn import nn_plan
+
+    plan = nn_plan(a.shape[0], a.shape[1], b.shape[1], packed)
+    return (f"plan {plan.variant} "
+            f"{'staged' if plan.staged else 'streamed'}")
+
+
 def compare_nn(name, kernel_fn, plain_fn, cases, rel_bound):
     """An exact 3-NN kernel at each (xyz1, xyz2): idx equal, distances
-    within rel_bound relative (0: equal)."""
+    within rel_bound relative (0: equal); each shape prints its plan."""
     err, times, shapes, bounds = 0.0, [], [], []
     for a, b in cases:
         d, i = kernel_fn(a, b)
@@ -465,7 +478,7 @@ def compare_nn(name, kernel_fn, plain_fn, cases, rel_bound):
         bounds.append(nn_bound(a, b, d, i))
         shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
         log(f"[kernels] {name} {shape}: idx equal, dist max rel err "
-            f"{rel:.3g}; {t[4]}; {bound_note(bounds[-1])}")
+            f"{rel:.3g}; {t[4]}; {bound_note(bounds[-1])}; {nn_note(a, b)}")
         times.append(t)
         shapes.append(shape)
     return kernel_result(err, times, shapes, bounds)
@@ -502,7 +515,7 @@ def compare_nn_packed(a, b):
     shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
     log(f"[kernels] three_nn_packed {shape}: idx equal, dist equal but for "
         f"{n_off} of {d.numel()} entries one key quantum off; {t[4]}; "
-        f"{bound_note(bounds[0])}")
+        f"{bound_note(bounds[0])}; {nn_note(a, b, packed=True)}")
 
     de, ie = three_nn.three_nn(a, b)
     agree = (i == ie).double().mean().item()
@@ -571,25 +584,29 @@ def compare_kernels(dev):
     # picks, and the stage profiler's fps1 / fps2 (below)
     nlevel = torch.from_numpy(
         rng.rand(NLEVEL_B, NLEVEL_N, 3).astype(np.float32)).to(dev)
-    chain, level = [], nlevel
+    chain, levels = [], [nlevel]
     for npoint in NLEVEL_SPEC["sa_npoints"]:
-        chain.append((level, npoint))
-        level = fps.fps(level, npoint)[1]
+        chain.append((levels[-1], npoint))
+        levels.append(fps.fps(levels[-1], npoint)[1])
     results["fps"] = compare_fps_single([(cloud, 512)] + chain
                                         + [(P64, 512), (Q1, 128)])
     fps_ties_and_slices(dev)
 
-    # B8 at SA1 and SA2, a few queries moved out of the cloud so that
-    # the zero-hit fallback runs; every output equal
-    far1, far2 = xyz1.clone(), xyz2.clone()
-    far1[:, :4] += 10.0
-    far2[:, :4] += 10.0
+    # B8 at SA1 and SA2 of the serving batch and of the bucket path's
+    # (B=64), a few queries moved out of the cloud so that the zero-hit
+    # fallback runs; every output equal
+    def far(q):
+        q = q.clone()
+        q[:, :4] += 10.0
+        return q
+
+    b_cases = ((cloud, far(xyz1), 0.2), (xyz1, far(xyz2), 0.4),
+               (P64, far(bxyz1), 0.2), (bxyz1, far(bxyz2), 0.4))
     results["ball_query_group_bucket"] = compare_grouping(
         "ball_query_group_bucket", ball_query.ball_query_group_bucket,
         ball_query.ball_query_group_bucket_plain,
-        ((cloud, far1, 0.2, False), (xyz1, far2, 0.4, True)), 0.0,
-        whole_cloud=True)
-    for pts, q, r in ((cloud, far1, 0.2), (xyz1, far2, 0.4)):
+        [(p, q, r, r > 0.3) for p, q, r in b_cases], 0.0, whole_cloud=True)
+    for pts, q, r in b_cases:
         _, cnt, _ = ball_query.ball_query_group_bucket(r, 64, pts, q, False)
         if not ((cnt[:, :4] == 0).all() and (cnt[:, 4:] > 0).all()):
             raise AssertionError("ball_query_group_bucket: the moved "
@@ -635,14 +652,18 @@ def compare_kernels(dev):
                         ball_query.ball_query_point_grouped_plain(
                             r, 64, pts, q)))
 
-    # K3: FP2 and FP3 of both paths
+    # K3: FP2 and FP3 of the serving, bench (B=64) and large-cloud
+    # paths, and the four FP stages of the N-level path
     results["three_nn"] = compare_nn(
         "three_nn", three_nn.three_nn, three_nn.three_nn_plain,
-        ((xyz1, xyz2), (cloud, xyz1), (lxyz1, lxyz2), (large, lxyz1)), 1e-6)
+        ((xyz1, xyz2), (cloud, xyz1), (bxyz1, bxyz2), (P64, bxyz1),
+         (lxyz1, lxyz2), (large, lxyz1))
+        + tuple(zip(levels[-2::-1], levels[:0:-1])), 1e-6)
 
     # B7 at test_pallas_tpu.py:248's shape and at an M that is no
-    # multiple of the kernel's 512-candidate tile, with an exact tie
-    # across tiles for query 0 (candidate 10 and its copy at 600)
+    # multiple of the kernel's 2048-candidate tile, with an exact tie
+    # for query 0 across two lanes' slices (candidate 10 and its copy at
+    # 600)
     srng = np.random.RandomState(9)
     s_cases = []
     for B, N, M in STREAM_SHAPES:

@@ -14,11 +14,15 @@ be equal, not just close.  Shapes are the serving path's at B=16 and
 the large-cloud path's (N=32768) at B=1-4; FPS also at every cluster
 size, on tie-heavy grid clouds, ragged slices and at each variant's
 boundary (N up to 100003); the first-S ball query at every launch plan
-(`ball_query.bq_plan`'s branches and each (variant, W, staged) the
+(`ball_query.bq_plan`'s branches and each (variant, staged) the
 kernel has) on ragged, boundary-heavy, all-hit, zero-hit and duplicate-
-point clouds up to N = 100003; the rank-select ball query and
-the packed 3-NN at the stage profiler's B=64, the streaming 3-NN at
-(4, 2048 <- 16384).
+point clouds up to N = 100003; the bucket tier at every plan, bucket
+widths 1 to 4096 (wider than a streamed tile), zero-hit queries and
+first hits late in the cloud, N up to 100003, and at the bucket path's
+B=64; the rank-select ball query and the packed 3-NN at the stage
+profiler's B=64; the 3-NN kernel at every (G, C), staged and streamed,
+with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
+every path shape and at (4, 2048 <- 16384).
 """
 
 import numpy as np
@@ -477,11 +481,11 @@ def _bq_check(name, r, S, xyz, q, plan=None, emit_idx=True):
     return cntp
 
 
-def _all_plans(N, S):
+def _all_plans(N, S, bucket=False):
     return [ball_query.Plan(v, st) for st in (True, False)
             for v in ball_query.VARIANTS
-            if ball_query.smem_bytes(ball_query.Plan(v, st), N,
-                                     S) <= ball_query.SMEM_BYTES]
+            if ball_query.smem_bytes(ball_query.Plan(v, st), N, S,
+                                     bucket) <= ball_query.SMEM_BYTES]
 
 
 # every plan the kernel has, each entry: a ragged cloud (no multiple of
@@ -573,3 +577,180 @@ def test_ball_query_plan_for_many_slots(dev):
     q = xyz[:, :512].contiguous()
     _bq_check("ball_query_group", 0.8, 1500, xyz, q)
     _bq_check("ball_query_group_packed", 0.8, 1500, xyz, q)
+
+
+# ---- the bucket tier (B8) on the scan, at every launch plan ---------------
+
+def _bucket_check(xyz, q, r, S, plan=None, emit_idx=True):
+    """One bucket launch (at `plan`, else the entry's own call) against
+    the plain version: every output equal."""
+    kernel = KERNELS["ball_query_group_bucket"]
+    before = kernel.launches
+    if plan is None:
+        g, cnt, idx = ball_query.ball_query_group_bucket(r, S, xyz, q,
+                                                         emit_idx)
+    else:
+        g, cnt, idx = ball_query.launch(kernel, r, S, xyz, q, emit_idx, plan)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    gp, cntp, idxp = ball_query.ball_query_group_bucket_plain(r, S, xyz, q)
+    assert torch.equal(cnt, cntp)
+    assert torch.equal(g, gp)
+    if emit_idx:
+        assert torch.equal(idx, idxp)
+    else:
+        assert idx is None
+    return cntp
+
+
+def _x_sorted_cloud(seed, B, N, dev):
+    """A cloud in index order along x: a query at large x has its first
+    hit in the cloud's last tile, after many empty buckets."""
+    xyz = _cloud(seed, B, N, dev)
+    order = xyz[..., 0].argsort(dim=1)
+    return xyz.gather(1, order[..., None].expand(-1, -1, 3)).contiguous()
+
+
+def _bucket_queries(xyz, M, seed):
+    """M queries: three with no hit, the cloud's last points (first hits
+    late in index order), then uniform ones."""
+    B, N, _ = xyz.shape
+    q = torch.cat([_cloud(seed, B, 3, xyz.device) + 5.0, xyz[:, -5:],
+                   _cloud(seed + 1, B, M - 8, xyz.device)], 1)
+    return q.contiguous()
+
+
+# every plan the kernel has, at bucket widths W = 1, 8, 32, 128 and
+# W = 4096 > a streamed tile (N = 4096, S = 1; N = 8192, S = 2), on ragged
+# clouds (N = 100, 1000, 2000) and past STAGE_POINTS (streamed)
+@pytest.mark.parametrize("N,S,W", [(100, 128, 1), (512, 64, 8), (2000, 64, 32),
+                                   (1000, 8, 128), (4096, 1, 4096),
+                                   (8192, 2, 4096), (6144, 3, 2048)])
+def test_ball_query_bucket_every_plan_matches_plain(dev, N, S, W):
+    assert ball_query.core.bucket_width(N, S) == W
+    xyz = _x_sorted_cloud(70, 2, N, dev)
+    q = _bucket_queries(xyz, 37, 71)
+    plans = _all_plans(N, S, bucket=True)
+    assert any(not p.staged for p in plans)
+    for plan in plans:
+        cnt = _bucket_check(xyz, q, 0.3, S, plan, emit_idx=plan.staged)
+    assert (cnt[:, :3] == 0).all() and (cnt[:, 3:8] > 0).all()
+
+
+# the plan's own choice where the cloud streams: a ragged last tile
+# (N = 3001), W = 32 over two tiles, and N = 100003 (49 tiles, W = 128)
+@pytest.mark.parametrize("N,S", [(3001, 96), (100003, 782)])
+def test_ball_query_bucket_streamed_clouds(dev, N, S):
+    assert not ball_query.bq_plan(2, N, 40, S, bucket=True).staged
+    xyz = _x_sorted_cloud(72, 2, N, dev)
+    q = _bucket_queries(xyz, 40, 73)
+    for emit_idx in (True, False):
+        _bucket_check(xyz, q, 0.05, S, emit_idx=emit_idx)
+
+
+# the bucket path's shapes at B = 64 on FPS picks, at the plan's choice
+@pytest.mark.parametrize("N,M,r", [(2048, 512, 0.2), (512, 128, 0.4)])
+def test_ball_query_bucket_path_shapes(dev, N, M, r):
+    xyz = _cloud(74, 64, N, dev)
+    q = fps.fps(xyz, M)[1].clone()
+    q[:, :4] += 10.0
+    cnt = _bucket_check(xyz, q, r, 64, emit_idx=r > 0.3)
+    assert (cnt[:, :4] == 0).all() and (cnt[:, 4:] > 0).all()
+
+
+# ---- the 3-NN kernel (csrc/three_nn.cu) at every launch plan --------------
+
+NN_ENTRIES = ("three_nn", "three_nn_stream", "three_nn_packed")
+
+
+def _nn_check(name, xyz1, xyz2, plan=None):
+    """One launch of 3-NN entry `name` (at `plan`, else the entry's own
+    call) against the plain version: idx equal, distances equal (B9:
+    or one key quantum off)."""
+    kernel = KERNELS[name]
+    before = kernel.launches
+    if plan is None:
+        d, i = getattr(three_nn, name)(xyz1, xyz2)
+    else:
+        d, i = three_nn.launch(kernel, xyz1, xyz2, plan)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    packed = name == "three_nn_packed"
+    dp, ip = (three_nn.three_nn_packed_plain if packed
+              else three_nn.three_nn_plain)(xyz1, xyz2)
+    assert torch.equal(i, ip)
+    if packed:
+        bits = (d.view(torch.int32) - dp.view(torch.int32)).abs()
+        assert ((bits == 0) | (bits == 1 << 16)).all()
+    else:
+        assert torch.equal(d, dp)
+    return i
+
+
+def _nn_plans(M):
+    return [three_nn.Plan(v, st) for st in (True, False)
+            for v in three_nn.VARIANTS
+            if three_nn.smem_bytes(three_nn.Plan(v, st), M)
+            <= three_nn.SMEM_BYTES]
+
+
+# every (G, C), staged and streamed, every entry: a query count no CTA
+# divides, M = 2100 (a full streamed tile and 52 more), and query 0 on
+# three copies of one candidate (5, 6 and 2054: different slices at
+# every C, and, streamed, different tiles)
+@pytest.mark.parametrize("variant", list(three_nn.VARIANTS))
+def test_three_nn_every_plan_matches_plain(dev, variant):
+    xyz1 = _cloud(80, 3, 301, dev)
+    xyz2 = _cloud(81, 3, 2100, dev)
+    xyz2[:, 6] = xyz2[:, 5]
+    xyz2[:, 2054] = xyz2[:, 5]
+    xyz1[:, 0] = xyz2[:, 5]
+    for staged in (True, False):
+        for name in NN_ENTRIES:
+            i = _nn_check(name, xyz1, xyz2, three_nn.Plan(variant, staged))
+            assert (i[:, 0] == torch.tensor([5, 6, 2054], device=dev)).all()
+
+
+# fewer candidates than lanes, slots or a step: M = 1 and 2 leave spare
+# slots, which the merge must keep at (inf, 0) / the spare key
+@pytest.mark.parametrize("M", [1, 2, 3, 33])
+def test_three_nn_few_candidates_every_plan(dev, M):
+    xyz1 = _cloud(82, 2, 70, dev)
+    xyz2 = _cloud(83, 2, M, dev)
+    for plan in _nn_plans(M):
+        for name in NN_ENTRIES:
+            _nn_check(name, xyz1, xyz2, plan)
+
+
+# the plan's own choice at every path shape of K3 (nn_sweep.SHAPES) and
+# at B7's and B9's entry shapes, on FPS-picked candidates
+@pytest.mark.parametrize("B,N,M", [(16, 512, 128), (16, 2048, 512),
+                                   (64, 512, 128), (64, 2048, 512),
+                                   (4, 512, 128), (4, 32768, 512),
+                                   (8, 64, 16), (8, 256, 64), (8, 1024, 256),
+                                   (8, 8192, 1024)])
+def test_three_nn_path_shapes(dev, B, N, M):
+    xyz1 = _cloud(84, B, N, dev)
+    xyz2 = fps.fps(xyz1, M)[1]
+    _nn_check("three_nn", xyz1, xyz2)
+
+
+def test_three_nn_stream_plan_streams_large_sets(dev):
+    assert not three_nn.nn_plan(4, 2048, 16384).staged
+    xyz1 = _cloud(85, 4, 2048, dev)
+    xyz2 = _cloud(86, 4, 16384, dev)
+    xyz2[:, 9001] = xyz2[:, 3]
+    xyz1[:, 0] = xyz2[:, 3]
+    i = _nn_check("three_nn_stream", xyz1, xyz2)
+    assert (i[:, 0, :2] == torch.tensor([3, 9001], device=dev)).all()
+    _nn_check("three_nn_packed", xyz1, xyz2)
+
+
+def test_three_nn_refuses_a_plan_the_card_cannot_hold(dev):
+    # staged at M = 16384 needs 256 KB of shared memory: the launch is
+    # refused with the card's error, not run on another plan
+    xyz1 = _cloud(87, 1, 64, dev)
+    xyz2 = _cloud(88, 1, 16384, dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        three_nn.launch(three_nn.KERNEL, xyz1, xyz2,
+                        three_nn.Plan("g1c1", True))
