@@ -9,7 +9,8 @@ kernel of the JAX package, are hand-written CUDA C++ under `csrc/`,
 built with nvcc at first use and bound with ctypes (`ops/kernels/`).
 A CPU tensor takes each kernel's plain PyTorch version; a CUDA tensor
 takes the kernel.  `profile_stages` times the flagship forward, its
-kernels and the pose fit's sub-stages on the card.
+kernels and the pose fit's sub-stages on the card.  `train` trains the
+model (`main.py train`'s path) from the host data feed of `data/`.
 
 This package imports torch and numpy only: never jax, flax or the JAX
 package, so it runs on a GPU host that has none of them.

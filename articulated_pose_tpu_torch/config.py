@@ -1,9 +1,11 @@
-"""Serving configuration.
+"""Serving and training configuration.
 
 Port of the `articulated_pose_tpu.config.NetworkConfig` fields that the
-forward + pose-fit path reads, with the same names and defaults,
-including the mixed-precision policy knobs (`head_compute_dtype`,
-`pool_compute_dtype`, `act_compute_dtype`, `f32_stages`; docs/dtype_ab.md).
+forward, the pose fit and the training step read, with the same names
+and defaults, including the mixed-precision policy knobs
+(`head_compute_dtype`, `pool_compute_dtype`, `act_compute_dtype`,
+`f32_stages`; docs/dtype_ab.md), and the two schedules of the training
+step (`bn_momentum_schedule`, `lr_schedule`).
 
 `load_config` reads the JAX package's config files (`cfg/*.yml`) with a
 small reader of its own (`read_flat_yaml`), so it needs no PyYAML, and
@@ -16,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 import re
 from typing import Optional
+
+import torch
 
 from articulated_pose_tpu_torch.registry import CategorySpec, get_category
 
@@ -47,13 +51,16 @@ JAX_FIELDS = (
 
 @dataclasses.dataclass
 class NetworkConfig:
+    nn_name: str = "ancsh"
     category: str = "eyeglasses"
     nocs_type: str = "ancsh"           # 'ancsh' (part+global NOCS) | 'npcs'
+    experiment_dir: str = "results"
     n_max_parts: int = 3
     num_points: int = 1024
     pred_joint: bool = True
+    pred_joint_ind: bool = True
     early_split_nocs: bool = True
-    dropout_rate: float = 0.5          # identity in eval; kept for parity
+    dropout_rate: float = 0.5          # the backbone's dp1, in training
     backbone_preset: str = "reference"  # 'reference' | 'tiny'
     compute_dtype: str = "float32"     # 'float32' | 'bfloat16' trunk
     # mixed-precision policy under a bf16 trunk (None = compute_dtype):
@@ -70,7 +77,26 @@ class NetworkConfig:
     # without it the "xla" route, exact whatever ball_query_packed says
     use_pallas: bool = True
     ball_query_packed: bool = False
+
+    # losses (config.py:77-85)
+    miou_loss_multiplier: float = 1.0
+    nocs_loss_multiplier: float = 10.0
+    gocs_loss_multiplier: float = 1.0
+    offset_loss_multiplier: float = 5.0    # heatmap & unitvec
+    orient_loss_multiplier: float = 0.2
+    index_loss_multiplier: float = 1.0
+    total_loss_multiplier: float = 1.0
+    coord_regress_loss: str = "L2"     # 'L2' | 'Soft_L1' | 'L1'
+
+    # schedule (config.py:88-97): decay steps count samples
     batch_size: int = 16
+    n_epochs: int = 1000
+    init_learning_rate: float = 1e-3
+    decay_step: int = 200_000
+    decay_rate: float = 0.7
+    bn_decay_step: int = 200_000
+    val_interval: int = 5000
+    snapshot_interval: int = 1000
 
     ransac_niter_part: int = 128
     ransac_niter_joint: int = 64
@@ -274,5 +300,25 @@ def load_config(path: Optional[str] = None, **overrides) -> NetworkConfig:
     known = {f.name for f in dataclasses.fields(NetworkConfig)}
     cfg = NetworkConfig(**{k: v for k, v in fields.items() if k in known})
     if cfg.nocs_type == "npcs":
-        cfg = cfg.replace(pred_joint=False)
+        cfg = cfg.replace(pred_joint=False, pred_joint_ind=False)
     return cfg
+
+
+def bn_momentum_schedule(step, batch_size: int, bn_decay_step: int
+                         ) -> torch.Tensor:
+    """EMA momentum of the batch-norm statistics at `step`:
+    min(0.99, 1 - 0.5 * 0.5^floor(step * B / bn_decay_step)), in float32
+    (config.py:163-174).  `step` is a Python int or an integer tensor;
+    the result is a 0-d float32 tensor on the step's device."""
+    samples = torch.as_tensor(step) * batch_size
+    bn_momentum = 0.5 * torch.pow(0.5, torch.floor(samples / bn_decay_step))
+    return torch.clamp_max(1.0 - bn_momentum, 0.99)
+
+
+def lr_schedule(step, batch_size: int, init_lr: float, decay_step: int,
+                decay_rate: float) -> torch.Tensor:
+    """Staircase learning rate in units of samples:
+    init_lr * decay_rate^floor(step * B / decay_step), in float32
+    (config.py:177-182); `step` as in `bn_momentum_schedule`."""
+    samples = torch.as_tensor(step) * batch_size
+    return init_lr * torch.pow(decay_rate, torch.floor(samples / decay_step))

@@ -9,6 +9,10 @@ the mapping is by name:
     params/<path>/dense/bias               -> <path>.dense.bias
     params/<path>/bn/scale | bias          -> <path>.bn.weight | bias
     batch_stats/<path>/bn/mean | var       -> <path>.bn.running_mean | running_var
+
+`train_state_from_optax` carries a JAX train state across as well: the
+optax Adam moments and count and the step, so a run stopped mid-training
+continues in the port.
 """
 
 from __future__ import annotations
@@ -48,3 +52,34 @@ def load_flax_npz(path: str) -> Dict[str, torch.Tensor]:
     """state_dict from an `np.savez` of the flattened Flax variables."""
     with np.load(path) as f:
         return state_dict_from_flax({k: f[k] for k in f.files})
+
+
+def train_state_from_optax(flat: Mapping[str, np.ndarray]) -> Dict:
+    """A JAX `TrainState`, flattened to "/"-joined keys of numpy arrays,
+    -> `train.state.TrainState.state_dict()` of the port.
+
+    The keys are "params/...", "batch_stats/..." (the model, as
+    `state_dict_from_flax` reads them), "mu/..." and "nu/..." (Adam's
+    moments, on the params' paths), "count" (Adam's count) and "step".
+    From a JAX state `s` whose optimizer is `apply_if_finite(adam(...))`:
+
+        adam = s.opt_state.inner_state[0]
+        flax.traverse_util.flatten_dict(
+            {"params": s.params, "batch_stats": s.batch_stats,
+             "mu": adam.mu, "nu": adam.nu, "count": adam.count,
+             "step": s.step}, sep="/")
+    """
+    groups: Dict[str, Dict[str, np.ndarray]] = {"model": {}, "mu": {},
+                                                 "nu": {}}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head in ("params", "batch_stats"):
+            groups["model"][key] = value
+        elif head in ("mu", "nu") and rest:
+            groups[head]["params/" + rest] = value
+        elif key not in ("count", "step"):
+            raise KeyError(f"unexpected train-state variable {key!r}")
+    out = {name: state_dict_from_flax(g) for name, g in groups.items()}
+    for key in ("count", "step"):
+        out[key] = torch.tensor(int(np.asarray(flat[key])), dtype=torch.int32)
+    return out

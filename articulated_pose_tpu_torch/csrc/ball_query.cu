@@ -684,7 +684,10 @@ int launch(Tier tier, int variant, int staged, int packed, Args a,
     const cudaError_t err = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(fn),
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return static_cast<int>(err);
+    }
   }
   fn<<<static_cast<unsigned>(blocks), kThreads, static_cast<size_t>(bytes),
        stream>>>(a);

@@ -546,7 +546,10 @@ int launch(int cluster, const float* xyz, int batch, int n, int np1, int np2,
   if (cluster > 8) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch reports it
+      return static_cast<int>(err);
+    }
   }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;

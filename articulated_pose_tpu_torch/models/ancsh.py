@@ -6,9 +6,11 @@ W (B, N, K) softmax, nocs_per_point (B, N, 3K) sigmoid, confi_per_point
 global_translation (B, N, 3K) tanh and gocs_per_point = nocs · scale
 (repeated 3× per part, interleaved) + translation; with pred_joint the
 joint head's joint_axis / unitvec (tanh), heatmap (sigmoid) and
-index_per_point (softmax).  Inference only; dropout is the identity.
-The heads run in `head_dtype` (None = the trunk's `dtype`); the
-backbone takes the rest of the mixed-precision policy (ancsh.py:73-96).
+index_per_point (softmax).  `forward` follows `self.training`: batch norm
+on the batch's statistics and dropout (dp1 in the backbone, dp_0 and
+dp_1 in the joint head) in training mode.  The heads run in
+`head_dtype` (None = the trunk's `dtype`); the backbone takes the rest
+of the mixed-precision policy (ancsh.py:73-96).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from articulated_pose_tpu_torch.models.layers import PointConv, init_weights
+from articulated_pose_tpu_torch.models.layers import (PointConv, dropout,
+                                                     init_weights)
 from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
                                                          BackboneSpec,
                                                          PointNet2Backbone)
@@ -32,10 +35,15 @@ def _head(in_features: int, features: int, dtype) -> PointConv:
 
 
 class JointHead(nn.Module):
-    """Joint-parameter head (lib/architecture.py:195-208)."""
+    """Joint-parameter head (lib/architecture.py:195-208).
+
+    Its dropout rate is Flax's default, 0.5, whatever the config says:
+    JAX's ANCSHModel builds its JointHead without passing one
+    (ancsh.py:131)."""
 
     def __init__(self, in_features: int, n_parts: int, dtype):
         super().__init__()
+        self.dropout_rate = 0.5
         self.fc3_0 = PointConv(in_features, 128, dtype=dtype)
         self.fc3_1 = PointConv(128, 128, dtype=dtype)
         self.fc4_0 = _head(128, 3, dtype)
@@ -43,8 +51,12 @@ class JointHead(nn.Module):
         self.fc4_2 = _head(128, 1, dtype)
         self.fc4_3 = _head(128, n_parts, dtype)
 
-    def forward(self, feat: torch.Tensor):
-        x = self.fc3_1(self.fc3_0(feat))
+    def forward(self, feat: torch.Tensor, bn_momentum=0.9,
+                generator: Optional[torch.Generator] = None):
+        x = feat
+        for fc in (self.fc3_0, self.fc3_1):                  # dp_0, dp_1
+            x = dropout(fc(x, bn_momentum), self.dropout_rate, self.training,
+                        generator)
         joint_axis = torch.tanh(self.fc4_0(x).float())
         unitvec = torch.tanh(self.fc4_1(x).float())
         heatmap = torch.sigmoid(self.fc4_2(x).float())
@@ -88,8 +100,13 @@ class ANCSHModel(nn.Module):
         if pred_joint:
             self.joint_net = JointHead(width, K, hdt)
 
-    def forward(self, P: torch.Tensor) -> Dict[str, torch.Tensor]:
-        feat = self.backbone(P)
+    def forward(self, P: torch.Tensor, *, bn_momentum=0.9,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """In training mode batch norm moves its running statistics by
+        `bn_momentum` (a float or a 0-d tensor) and dropout draws its
+        masks from `generator`."""
+        feat = self.backbone(P, bn_momentum, generator)
         results = []
         for i in range(self.n_heads):
             x = feat
@@ -109,7 +126,8 @@ class ANCSHModel(nn.Module):
             "confi_per_point": torch.sigmoid(confi_logits),
         }
         if self.pred_joint:
-            joint_axis, unitvec, heatmap, joint_cls = self.joint_net(feat)
+            joint_axis, unitvec, heatmap, joint_cls = self.joint_net(
+                feat, bn_momentum, generator)
             pred.update({
                 "joint_axis_per_point": joint_axis,
                 "unitvec_per_point": unitvec,

@@ -4,8 +4,10 @@ Tensors are channels-last, (B, N, C) or (B, M, S, C), so a 1×1 conv is an
 `nn.Linear` over the last axis.  Parameters and batch-norm statistics stay
 f32; `dtype` is the compute dtype of the matmul and, unless `out_dtype`
 says otherwise, of what the layer emits (the mixed-precision policy of
-layers.py:75-123).  Only inference is ported: batch norm uses its running
-statistics and the modules refuse to run in training mode.
+layers.py:75-123).  In training mode (`module.train()`) batch norm
+normalises with the batch's statistics and moves its running ones by a
+momentum given at run time; `dropout` is Flax's, its mask drawn from a
+given torch.Generator.
 """
 
 from __future__ import annotations
@@ -18,16 +20,33 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only inference is ported; call "
-            ".eval() first")
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax's `nn.Dropout`: in training, where(keep, x / (1 - rate), 0)
+    with keep ~ Bernoulli(1 - rate) drawn as torch.rand(...) < 1 - rate
+    from `generator`; the identity in eval or at rate 0.
+    (`F.dropout` takes no generator.)"""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
 
 
 class ScheduledBatchNorm(nn.Module):
-    """Inference batch norm over the last axis, eps 1e-3, stats in f32
-    (layers.py:26-60); the output is cast to `dtype`."""
+    """Batch norm over the last axis, eps 1e-3, stats in f32
+    (layers.py:26-60); the output is cast to `dtype`.
+
+    In training mode it normalises with the batch's mean and biased
+    variance over every axis but the last, and moves the running
+    statistics in place as ra = m * ra + (1 - m) * batch (the biased
+    variance too).  `momentum` m is a float or a 0-d tensor, so a
+    schedule on the device costs no host sync.  `F.batch_norm` is not
+    used: it moves the running variance by the unbiased one, and its
+    momentum is 1 - m."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-3):
@@ -39,10 +58,21 @@ class ScheduledBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * inv + self.bias
+    def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            var, mean = torch.var_mean(x32, dim=tuple(range(x.dim() - 1)),
+                                       correction=0)
+            with torch.no_grad():
+                m = momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean) * inv + self.bias
         return y.to(self.dtype)
 
 
@@ -62,11 +92,12 @@ class PointConv(nn.Module):
         self.bn = (ScheduledBatchNorm(features, self.out_dtype) if use_bn
                    else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         dt = self.dtype
         y = F.linear(x.to(dt), self.dense.weight.to(dt),
                      self.dense.bias.to(dt))
-        y = self.bn(y) if self.bn is not None else y.to(self.out_dtype)
+        y = (self.bn(y, bn_momentum) if self.bn is not None
+             else y.to(self.out_dtype))
         return F.relu(y) if self.relu else y
 
 
@@ -91,9 +122,9 @@ class SharedMLP(nn.Module):
                                                   dtype=dtype, out_dtype=odt))
             self.out_features = ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         for layer in self.children():
-            x = layer(x)
+            x = layer(x, bn_momentum)
         return x
 
 

@@ -43,7 +43,8 @@ from articulated_pose_tpu_torch.ops.kernels.ball_query import (
     ball_query_idx)
 from articulated_pose_tpu_torch.ops.kernels.fps import fps, fps2
 from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
-from articulated_pose_tpu_torch.models.layers import PointConv, SharedMLP
+from articulated_pose_tpu_torch.models.layers import (PointConv, SharedMLP,
+                                                     dropout)
 
 
 BALL_QUERY_IMPLS = ("xla", "pallas", "stream", "bucket", "bucket_xla")
@@ -167,8 +168,11 @@ class SetAbstraction(nn.Module):
                              out_dtype=pool_dtype, act_dtype=act_dtype)
         self.out_features = self.mlp.out_features
 
-    def forward(self, grouped: torch.Tensor) -> torch.Tensor:
-        return self.mlp(grouped).amax(dim=2).to(self.out_dtype)
+    def forward(self, grouped: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
+        # amax, not max(dim): its gradient splits evenly among ties, as
+        # JAX's reduce_max does, and the ball query pads a neighbourhood
+        # with repeats of its first hit, so ties are the rule
+        return self.mlp(grouped, bn_momentum).amax(dim=2).to(self.out_dtype)
 
 
 class FeaturePropagation(nn.Module):
@@ -183,7 +187,7 @@ class FeaturePropagation(nn.Module):
         self.out_features = self.mlp.out_features
 
     def forward(self, xyz1, xyz2, points1: Optional[torch.Tensor],
-                points2: torch.Tensor) -> torch.Tensor:
+                points2: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         if xyz2.shape[1] == 1:
             # a single global point: copy its feature everywhere
             interp = points2.expand(-1, xyz1.shape[1], -1)
@@ -195,7 +199,7 @@ class FeaturePropagation(nn.Module):
             # concatenated in the MLP's compute dtype (see sample_and_group)
             interp = torch.cat([interp.to(self.dtype),
                                 points1.to(self.dtype)], dim=-1)
-        return self.mlp(interp)
+        return self.mlp(interp, bn_momentum)
 
 
 class PointNet2Backbone(nn.Module):
@@ -252,7 +256,10 @@ class PointNet2Backbone(nn.Module):
         self.fc1 = PointConv(width, s.head_width, dtype=stage_dtype("fc1"),
                              out_dtype=act_dtype)
 
-    def forward(self, X: torch.Tensor) -> torch.Tensor:
+    def forward(self, X: torch.Tensor, bn_momentum=0.9,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In training mode batch norm takes `bn_momentum` and dropout
+        (dp1, after fc1) draws from `generator`."""
         s = self.spec
         B, _, C = X.shape
         if C != 3 + self.in_features:
@@ -275,12 +282,12 @@ class PointNet2Backbone(nn.Module):
                 l_pts[-1], sa.dtype, s.ball_query_impl, s.ball_query_packed,
                 precomputed_fps=pre[i])
             l_xyz.append(xyz)
-            l_pts.append(sa(grouped))
+            l_pts.append(sa(grouped, bn_momentum))
 
         # global SA over [xyz, features] of the last level's points (:130)
         dt = self.sa_global.dtype
         glob = torch.cat([l_xyz[-1].to(dt), l_pts[-1].to(dt)], dim=-1)
-        l_pts.append(self.sa_global(glob[:, None]))            # (B, 1, C)
+        l_pts.append(self.sa_global(glob[:, None], bn_momentum))  # (B, 1, C)
         l_xyz.append(torch.zeros((B, 1, 3), dtype=torch.float32,
                                  device=X.device))
 
@@ -293,5 +300,6 @@ class PointNet2Backbone(nn.Module):
                 skip = (l_xyz[0] if skip is None
                         else torch.cat([l_xyz[0], skip.float()], dim=-1))
             fp = getattr(self, f"fp{i + 1}")
-            feats = fp(l_xyz[lvl], l_xyz[lvl + 1], skip, feats)
-        return self.fc1(feats)                                # dropout: identity
+            feats = fp(l_xyz[lvl], l_xyz[lvl + 1], skip, feats, bn_momentum)
+        return dropout(self.fc1(feats, bn_momentum), s.dropout_rate,
+                       self.training, generator)             # dp1

@@ -24,7 +24,7 @@ Per stage it prints:
   synchronise (one call before, as a warm-up);
 - device ms/iter and device ops/iter: the summed durations and the count
   of the events torch.profiler records on the card over `iters` more
-  calls;
+  calls (`timing.device_profile`, which runs one uncounted call first);
 - idle share: 1 - device ms / wall ms, the share of the wall time in
   which the card had nothing of this stage to run;
 - clouds/s: the batch over the wall time;
@@ -150,16 +150,25 @@ def _stage_fns(B: int, N: int, spec: BackboneSpec, want: Sequence[str],
 
 
 def _measure(fn: Callable[[], object], iters: int, dev: torch.device):
-    """(wall ms, device ms or None, device ops or None) per call."""
+    """(wall ms, device ms or None, device ops or None, the port's kernel
+    launches) per call; the launches are counted over the wall clock's
+    calls, one warm-up and `iters` timed."""
+    before = launch_counts()
     if dev.type == "cuda":
         wall = timing.wall_ms(fn, iters)
-        busy, ops = timing.device_profile(fn, iters)
-        return wall, busy, ops
-    fn()
-    t0 = time.perf_counter()
-    for _ in range(iters):
+    else:
         fn()
-    return (time.perf_counter() - t0) * 1e3 / iters, None, None
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    after = launch_counts()
+    launches = {k: (after[k] - before[k]) / (1 + iters) for k in after
+                if after[k] != before[k]}
+    if dev.type != "cuda":
+        return wall, None, None, launches
+    busy, ops = timing.device_profile(fn, iters)
+    return wall, busy, ops, launches
 
 
 def run(batch: int = 64, points: int = 2048, iters: int = 16,
@@ -177,7 +186,6 @@ def run(batch: int = 64, points: int = 2048, iters: int = 16,
     if dev.type != "cpu":
         dev = timing.require_card(device)
     spec = spec or BackboneSpec()
-    calls = 1 + (2 if dev.type == "cuda" else 1) * iters
     print(f"{'stage':<34s} {'wall ms':>10s} {'device ms':>10s} "
           f"{'dev ops':>8s} {'idle':>6s} {'clouds/s':>10s}  launches/iter",
           flush=True)
@@ -186,11 +194,7 @@ def run(batch: int = 64, points: int = 2048, iters: int = 16,
         fns = _stage_fns(batch, points, spec, stages, dev)
         for name in stages:
             label, fn = fns[name]
-            before = launch_counts()
-            wall, busy, ops = _measure(fn, iters, dev)
-            after = launch_counts()
-            launches = {k: (after[k] - before[k]) / calls for k in after
-                        if after[k] != before[k]}
+            wall, busy, ops, launches = _measure(fn, iters, dev)
             idle = None if busy is None else max(0.0, 1.0 - busy / wall)
             rows.append(dict(stage=name, label=label, wall_ms=wall,
                              device_ms=busy, device_ops=ops, idle_share=idle,

@@ -12,6 +12,7 @@ server likewise reuses one key for every call).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -21,6 +22,8 @@ from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.models.ancsh import build_model
 from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws, PoseFitConfig,
                                                       fit_frame_batch)
+from articulated_pose_tpu_torch.train.trainer import (checkpoint_path,
+                                                      checkpoint_steps)
 
 POSE_KEYS = ("W", "nocs_per_point", "joint_axis_per_point", "index_per_point")
 
@@ -40,12 +43,16 @@ class PoseResult:
 class PosePredictor:
     """ANCSH forward + pose fit on one device.
 
-    >>> pred = PosePredictor(cfg, ckpt_path="model.pt")   # on the card
+    >>> pred = PosePredictor(cfg, work_dir="results/ancsh")   # on the card
     >>> out = pred(clouds)          # (B, N, 3) float32
     >>> out.R[b, j], out.scale[b, j], out.t[b, j]
 
-    Weights come from `state_dict` or from `ckpt_path`, a `torch.save`d
-    state dict (`convert.load_flax_npz` turns a JAX checkpoint into one).
+    Weights come from exactly one of `state_dict`, `ckpt_path` (a
+    `torch.save`d state dict; `convert.load_flax_npz` turns a JAX
+    checkpoint into one) and `work_dir`, whose newest trainer checkpoint
+    (`<work_dir>/model/`) it serves, as the JAX server restores the
+    newest Orbax step (serving.py:51-70); FileNotFoundError when there is
+    none.
     It serves on the card unless `device` names another one; without a
     card the default raises rather than serving on the CPU.
     """
@@ -54,15 +61,25 @@ class PosePredictor:
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  ckpt_path: Optional[str] = None,
                  pose_cfg: Optional[PoseFitConfig] = None,
-                 use_nonlinear: bool = True, device="cuda"):
-        if (state_dict is None) == (ckpt_path is None):
-            raise ValueError("PosePredictor needs exactly one of state_dict "
-                             "and ckpt_path")
+                 use_nonlinear: bool = True, device="cuda",
+                 work_dir: Optional[str] = None):
+        if sum(x is not None for x in (state_dict, ckpt_path, work_dir)) != 1:
+            raise ValueError("PosePredictor needs exactly one of state_dict, "
+                             "ckpt_path and work_dir")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"PosePredictor: device {device} is not "
                                "available; pass device='cpu' to serve on "
                                "the CPU")
+        if work_dir is not None:
+            model_dir = os.path.join(work_dir, "model")
+            steps = checkpoint_steps(model_dir)
+            if not steps:
+                raise FileNotFoundError(f"no trainer checkpoint in "
+                                        f"{model_dir}")
+            state_dict = torch.load(checkpoint_path(model_dir, steps[-1]),
+                                    map_location="cpu",
+                                    weights_only=True)["model"]
         if ckpt_path is not None:
             state_dict = torch.load(ckpt_path, map_location="cpu",
                                     weights_only=True)

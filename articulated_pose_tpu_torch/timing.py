@@ -26,6 +26,13 @@ MAX_SPIN_CYCLES = 1 << 28           # ~0.15-0.25 s of spin at H100 clocks
 # outside the tensor cores, and HBM3 bandwidth
 F32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# device_profile: the uncounted kernels and the pause between a trace's
+# start and its counted calls, the spin kernels marking them (~0.5 us each
+# at H100 clocks), and the retakes of a trace that lost a mark
+PROFILE_PAD_OPS = 8
+PROFILE_SETTLE_S = 0.05
+PROFILE_MARK_CYCLES = 1000
+PROFILE_RETAKES = 4
 
 
 def cuda_time_ms(fn: Callable[[], object], reps: int = 20):
@@ -88,24 +95,56 @@ def wall_ms(fn: Callable[[], object], iters: int) -> float:
 def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
     """(device-busy ms, device ops) per call of fn, from torch.profiler
     over `iters` calls: the summed durations and the count of the
-    events it records on the card (kernels, copies, memsets).  Raises if
-    it records none, so a trace that misses the card reads as a fault."""
+    events it records on the card (kernels, copies, memsets), the count
+    rounded down, so an event the trace lost lowers it.
+
+    Traces on an H100 have lost the kernels launched in their first
+    moments (the first one or two, or all of a short trace), and put
+    the card's events milliseconds off the host's.  So a trace opens
+    with one uncounted call of fn and `PROFILE_PAD_OPS` small kernels, a
+    synchronise and a pause of `PROFILE_SETTLE_S`; spin kernels
+    (`torch.cuda._sleep`, which fn must not launch) then mark, on the
+    card's own clock, where the counted calls begin and end, and only
+    the events between the marks count.
+    A trace that lost a mark is retaken, at most `PROFILE_RETAKES`
+    times; then, as when nothing lies between the marks, it raises, so
+    a trace that misses the card reads as a fault."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        # one profiling window: the warning about clearing events at the
-        # end of each scheduled cycle does not apply
-        warnings.filterwarnings("ignore", "Warning: Profiler clears events")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(1 + PROFILE_RETAKES):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            # one profiling window: the warning about clearing events at
+            # the end of each scheduled cycle does not apply
+            warnings.filterwarnings("ignore",
+                                    "Warning: Profiler clears events")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
                 fn()
-            torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                for _ in range(PROFILE_PAD_OPS):
+                    pad.add_(1)
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_SETTLE_S)
+                torch.cuda._sleep(PROFILE_MARK_CYCLES)
+                for _ in range(iters):
+                    fn()
+                torch.cuda._sleep(PROFILE_MARK_CYCLES)
+                torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(dev) if "spin" in e.name]
+        if len(marks) == 2:
+            break
+        print(f"device_profile: the trace kept {len(marks)} of its 2 marks "
+              f"({len(dev)} device events); retaking it", file=sys.stderr,
+              flush=True)
+    ops = dev[marks[0] + 1:marks[1]] if len(marks) == 2 else []
     if not ops:
-        raise RuntimeError("torch.profiler recorded no device activity")
+        raise RuntimeError("torch.profiler recorded no device activity "
+                           "between its marks")
     busy_us = sum(e.time_range.elapsed_us() for e in ops)
     return busy_us / 1e3 / iters, len(ops) // iters
 

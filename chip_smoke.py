@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Phases (each prints what it found; any failure raises, so the exit code
 is non-zero):
 
 0. Require a CUDA device; print the card (nvidia-smi name and power
-   limit) and the torch / CUDA / nvcc versions.
+   limit), the torch / CUDA / nvcc versions, and whether scipy and h5py
+   import on the host.
 1. Build the CUDA sources from csrc/, one nvcc each, all at once; print
    each kernel's registers, shared memory and spills (ptxas -v).
 2. Hold each of the eleven kernels against its plain PyTorch version at
@@ -62,13 +64,33 @@ is non-zero):
    the f32 forward on the card against the CPU at B=1.
 8. Stage profiler: `profile_stages.run` at B=64, N=2048 over all 14
    stages, a few iterations each; every stage must show device time and
-   device ops, and B2 (`fps1`, `fps2`) and B5 (`bq1`, `bq2`) must launch.
+   at least as many device ops a call as it launched kernels, and B2
+   (`fps1`, `fps2`) and B5 (`bq1`, `bq2`) must launch.
 9. Kernel entries: B5g, B7 and B9 called once each at phase 2's shapes,
    as the JAX package's tests and A/B scripts call the TPU kernels; each
    output is held against the plain version's, by phase 2's rules.
+10. Train (`main.py train`'s path, cfg/network_config.yml: eyeglasses,
+   K=3, N=1024, reference widths, seeded weights, frames of the port's
+   synthetic generator): (a) f32, B=16, BatchIterator -> device_prefetch
+   -> Trainer.fit for 30 steps on one batch, every step's metrics finite
+   with grads_finite true, total_loss below 0.8x the first (the rule of
+   tests/test_train.py), 1 fps2, 2 ball_query_group and 2 three_nn
+   launches a step; then PosePredictor(work_dir=...) serves one batch
+   from the trainer's checkpoint; and device_prefetch's batches, over
+   two shuffled epochs with its copy stream started late, equal the
+   host batches bit for bit; (b) one step on the card against the
+   same step on the CPU, B=2, dropout off: the kernels' outputs equal,
+   the loss within rtol 1e-5, each gradient within 1e-3 of its leaf's
+   largest entry (plus 1e-7 of the model's largest) with the CPU's ReLU
+   masks and max-pool selections imposed on the card, and on the card's
+   own routing at most 1e-4 of those choices differ from the CPU's and
+   each gradient is within 0.1 of its leaf's largest entry; (c) 5 steps
+   with the yml's bf16 trunk, finite; (d) train steps/s and clouds/s at
+   B=16 and B=32 (f32, host clock around a synchronised window) and the
+   device idle share (torch.profiler).
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-9 runs with the launch counts set to 0 just before it and read
+phases 4-10 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -78,6 +100,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import pathlib
 import subprocess
@@ -114,6 +137,23 @@ PROFILE_B = 64                      # scripts/profile_stages.py's defaults
 PROFILE_ITERS = 3
 PLAIN_REPS = 5
 STREAM_SHAPES = ((4, 2048, 16384), (4, 2048, 3000))   # B7: B, N, M
+# main.py train's path: cfg/network_config.yml (eyeglasses, K=3, B=16,
+# N=1024); tests/test_train.py's rule of a loss below 0.8x in 30 steps
+TRAIN_B = 16
+TRAIN_N = 1024
+TRAIN_STEPS = 30
+TRAIN_BF16_STEPS = 5
+TRAIN_RATE_B = (16, 32)
+# phase 10(b), the card's step on its own routing against the CPU's: the
+# share of ReLU and max-pool choices allowed to differ, and the gradient
+# bound a leaf, relative to its scale (the largest measured is 3.4e-2)
+TRAIN_FLIP_LIMIT = 1e-4
+TRAIN_OWN_ROUTING_BOUND = 0.1
+# phase 10(a)'s device_prefetch check: spin-kernel cycles the copy stream
+# starts behind (~35 ms at H100 clocks) and the consuming stream waits
+# between its two reads of a batch (~1 ms)
+PREFETCH_COPY_SPIN = 1 << 26
+PREFETCH_READ_SPIN = 1 << 21
 # FLOPs the work needs, for the bounds: a (query, point) distance is the
 # inner product (3 mul, 2 add), |q|^2 + |p|^2, 2 q.p and the difference,
 # plus the radius test or the clamp; |p|^2 or |q|^2 is 5 once per point;
@@ -1115,7 +1155,9 @@ def nlevel_path(dev):
 
 # ------------------------------------------------------------ phases 8-9
 def profile_path(dev):
-    """Phase 8: the stage profiler over every stage; returns its counts."""
+    """Phase 8: the stage profiler over every stage; returns its counts.
+    Each stage's device ops a call must cover the port's kernels it
+    launched a call."""
     from articulated_pose_tpu_torch import profile_stages
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
@@ -1128,9 +1170,9 @@ def profile_path(dev):
         raise AssertionError("profile_stages did not run every stage")
     for r in rows:
         if not (r["wall_ms"] > 0 and r["device_ms"] > 0
-                and r["device_ops"] > 0):
-            raise AssertionError(f"[profile] {r['stage']}: no device work "
-                                 f"recorded ({r})")
+                and r["device_ops"] >= max(1, sum(r["launches"].values()))):
+            raise AssertionError(f"[profile] {r['stage']}: device work "
+                                 f"missing from the trace ({r})")
     per_call = {r["stage"]: r["launches"] for r in rows}
     want = {"forward": {"fps2": 1, "ball_query_group": 2, "three_nn": 2},
             "fps1": {"fps": 1}, "fps2": {"fps": 1},
@@ -1165,6 +1207,348 @@ def kernel_entries(entries):
     return counts
 
 
+# --------------------------------------------------------------- phase 10
+def train_frames(cfg, n: int, seed: int):
+    """n labelled frames of the port's synthetic generator, as main.py's
+    synthetic feed makes them (400 points a part, main.py:55-57)."""
+    from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
+
+    spec = cfg.category_spec
+    gen = SyntheticArticulated(n_parts=spec.n_parts, points_per_part=400,
+                               joint_types=list(spec.joint_types), seed=0)
+    rng = np.random.RandomState(seed)
+    return [gen.frame(rng, num_points=cfg.num_points,
+                      n_max_parts=cfg.n_max_parts,
+                      nocs_type="AC" if cfg.is_mixed else "A")[0]
+            for _ in range(n)]
+
+
+def stack(frames) -> dict:
+    return {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+
+
+def prefetch_check(frames, dev, batch: int = 4, epochs: int = 2) -> int:
+    """Phase 10(a): device_prefetch's batches against the host batches
+    they copy, bit for bit and in order: a shuffled BatchIterator over
+    `frames` for `epochs` epochs, prefetched 2 batches ahead.  The copy
+    stream starts behind a spin kernel (tens of ms), so every copy lands
+    late: a batch the consuming stream read before its copy's event
+    would hold stale memory.  The consuming stream clones each batch as
+    it gets it, then again behind a spin of about a ms, by which time
+    the host has let the batch go: memory handed to a later batch's copy
+    while this stream still reads it would hold that batch.  Returns the
+    number of batches checked."""
+    import itertools
+
+    import torch
+
+    from articulated_pose_tpu_torch.data.batcher import (BatchIterator,
+                                                         device_prefetch)
+
+    def feed():
+        return BatchIterator(len(frames), lambda i: frames[i], batch,
+                             shuffle=True, seed=1)
+
+    host = feed()
+    want = [b for _ in range(epochs) for b in host]
+    copy = torch.cuda.Stream(dev)
+    with torch.cuda.stream(copy):
+        torch.cuda._sleep(PREFETCH_COPY_SPIN)
+    got = []
+    card = feed()
+    for b in device_prefetch(
+            itertools.chain.from_iterable(itertools.repeat(card, epochs)),
+            size=2, device=dev, stream=copy):
+        first = {k: v.clone() for k, v in b.items()}
+        torch.cuda._sleep(PREFETCH_READ_SPIN)
+        got.append((first, {k: v.clone() for k, v in b.items()}))
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"[prefetch] {len(got)} batches, expected "
+                             f"{len(want)}")
+    for i, ((first, later), w) in enumerate(zip(got, want)):
+        for when, g in (("as it came", first), ("behind a spin", later)):
+            if set(g) != set(w) or not all(
+                    torch.equal(g[k].cpu(), torch.from_numpy(w[k]))
+                    for k in w):
+                raise AssertionError(f"[prefetch] batch {i}, read {when}, "
+                                     f"differs from the host batch")
+    log(f"[prefetch] device_prefetch: {len(got)} batches of {batch} "
+        f"({epochs} epochs, 2 ahead, the copy stream started late) equal "
+        f"the host batches in order, read as they came and behind a spin")
+    return len(got)
+
+
+def fit_and_read(label, cfg, frames, work_dir, steps, dev):
+    """Trainer.fit over a BatchIterator of `frames` (one batch an epoch)
+    for `steps` steps, every step logged; the launch counts set to 0
+    first.  Checks every step's metrics finite with grads_finite true;
+    returns (the per-step metric records, the launch counts)."""
+    import torch
+
+    from articulated_pose_tpu_torch.data.batcher import BatchIterator
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.train.trainer import Trainer
+
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    it = BatchIterator(len(frames), lambda i: frames[i], cfg.batch_size,
+                       shuffle=True, seed=0)
+    tr = Trainer(model, cfg, work_dir=str(work_dir), device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit(it, max_steps=steps, log_every=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(tr.logger.path) as f:
+        records = [json.loads(line) for line in f]
+    if [r["step"] for r in records] != list(range(1, steps + 1)):
+        raise AssertionError(f"[{label}] logged steps "
+                             f"{[r['step'] for r in records]}")
+    for r in records:
+        if r["grads_finite"] != 1.0 or not all(
+                np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"[{label}] step {r['step']}: {r}")
+    want = expected_launches(fps2=steps, ball_query_group=2 * steps,
+                             three_nn=2 * steps)
+    if counts != want:
+        raise AssertionError(f"[{label}] launches {counts}, expected {want}")
+    log(f"[{label}] {steps} steps B={cfg.batch_size} N={cfg.num_points} "
+        f"{cfg.compute_dtype}: total_loss {records[0]['total_loss']:.4f} -> "
+        f"{records[-1]['total_loss']:.4f}, grad_norm "
+        f"{records[0]['grad_norm']:.3f} -> {records[-1]['grad_norm']:.3f}, "
+        f"{seconds:.2f} s (host clock, first step's build and warm-up "
+        f"included); launches {counts}")
+    return records, counts
+
+
+def train_card_vs_cpu(cfg, state, batch, dev):
+    """Phase 10(b): one train step on the card against the same step on
+    the CPU, dropout off.  The kernels' outputs on this batch must equal
+    the plain versions' bit for bit, and the losses agree to rtol 1e-5.
+
+    The two forwards differ by ~1e-6 (cuBLAS's sum order), so a ReLU
+    input or a near-tie of a max that close can route the other way, and
+    a max routes a whole output's gradient (`train.routing`).  So the
+    card's step runs twice.  With the CPU's routing imposed (its ReLU
+    masks and max-pool selections), each leaf is held within 1e-3 of its
+    scale (its largest CPU entry; for a dense bias ahead of a batch norm,
+    whose exact gradient is 0, its layer's weight gradient's) plus 1e-7
+    of the model's largest CPU gradient entry, the f32 rounding of sums
+    whose terms cancel to about 0 (the last SA stage's batch-norm bias,
+    ahead of a max pool whose consumers are batch-normed).  With its own
+    routing, the choices that differ from the CPU's must be at most
+    `TRAIN_FLIP_LIMIT` of all, and each leaf within
+    `TRAIN_OWN_ROUTING_BOUND` of its scale plus the same floor."""
+    import torch
+
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels.ball_query import \
+        ball_query_group
+    from articulated_pose_tpu_torch.ops.kernels.fps import fps2
+    from articulated_pose_tpu_torch.models.pointnet2 import SetAbstraction
+    from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
+    from articulated_pose_tpu_torch.train.routing import (capture_routing,
+                                                          count_flips,
+                                                          grad_deviations,
+                                                          impose_routing,
+                                                          pre_bn_biases)
+    from articulated_pose_tpu_torch.train.state import (TrainState,
+                                                        loss_and_grads,
+                                                        to_device)
+
+    cfg = cfg.replace(dropout_rate=0.0, batch_size=batch["P"].shape[0])
+    spec = build_model(cfg).backbone.spec
+    cpu = torch.device("cpu")
+    # the kernels on the path, on this batch: card against plain
+    outs = {}
+    for where in (dev, cpu):
+        xyz = torch.from_numpy(batch["P"]).to(where)
+        i1, x1, i2, x2 = fps2(xyz, spec.sa_npoints[0], spec.sa_npoints[1])
+        g1 = ball_query_group(spec.sa_radii[0], spec.sa_nsamples[0], xyz, x1)
+        g2 = ball_query_group(spec.sa_radii[1], spec.sa_nsamples[1], x1, x2,
+                              emit_idx=True)
+        outs[where] = [t.cpu() for t in (i1, x1, i2, x2, *g1[:2], *g2,
+                                         *three_nn(x1, x2),
+                                         *three_nn(xyz, x1))]
+    check_equal("[train card vs CPU] kernel outputs", outs[dev], outs[cpu])
+
+    def step(where, hooks_for):
+        model = build_model(cfg, device=where)
+        model.load_state_dict(state)
+        model.joint_net.dropout_rate = 0.0
+        hooks = hooks_for(model)
+        st = TrainState(model, cfg)
+        total, _, grads = loss_and_grads(st, to_device(batch, where))
+        for h in hooks:
+            h.remove()
+        return total.item(), dict(zip(st.names, (g.cpu() for g in grads)))
+
+    record, own = {}, {}
+    ref_loss, want = step(cpu, lambda model: capture_routing(model, record))
+    loss, plain = step(dev, lambda model: capture_routing(model, own))
+    _, got = step(dev, lambda model: impose_routing(model, record))
+    model = build_model(cfg)
+    pools = {n for n, m in model.named_modules()
+             if isinstance(m, SetAbstraction)}
+    flips = {kind: count_flips({k: v for k, v in own.items()
+                                if (k in pools) == is_pool}, record)
+             for kind, is_pool in (("ReLU", False), ("max", True))}
+    flipped = sum(f for f, _ in flips.values())
+    choices = sum(n for _, n in flips.values())
+    zero = pre_bn_biases(model)
+    free = grad_deviations(plain, want, zero)
+    held = grad_deviations(got, want, zero)
+    show = lambda rows: ", ".join(f"{n} {r:.2e} ({d:.2e})"  # noqa: E731
+                                  for r, n, d, _ in rows[:4])
+    log(f"[train card vs CPU] B={cfg.batch_size} N={cfg.num_points} f32: "
+        f"loss {loss:.6f} vs {ref_loss:.6f} (rel "
+        f"{abs(loss - ref_loss) / abs(ref_loss):.2e}); choices routed "
+        f"otherwise than on the CPU: "
+        + ", ".join(f"{kind} {f} of {n}" for kind, (f, n) in flips.items())
+        + f" ({flipped / choices:.2e}); largest gradient deviations "
+        f"relative to the leaf's largest CPU entry (a pre-BN bias: its "
+        f"weight's), absolute in brackets; own routing: {show(free)}; the "
+        f"CPU's routing imposed: {show(held)}")
+    if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+        raise AssertionError("train step: card loss disagrees with the CPU")
+    if not flipped <= TRAIN_FLIP_LIMIT * choices:
+        raise AssertionError(f"train step: {flipped} of {choices} choices "
+                             f"routed otherwise than on the CPU, more than "
+                             f"{TRAIN_FLIP_LIMIT:g} of them")
+    floor = 1e-7 * max(w.abs().max().item() for w in want.values())
+    for rows, bound, label in ((held, 1e-3, "with the CPU's routing"),
+                               (free, TRAIN_OWN_ROUTING_BOUND,
+                                "with its own routing")):
+        for _, name, dev_, scale in rows:
+            if not dev_ <= bound * scale + floor:
+                raise AssertionError(
+                    f"train step {label}: gradient {name} deviates "
+                    f"{dev_:.3e} (scale {scale:.3e}, bound {bound:g}, floor "
+                    f"{floor:.3e})")
+
+
+def train_rate(cfg, frames, dev, steps: int = 20):
+    """Phase 10(d): train steps/s and clouds/s on a batch already on the
+    card, host clock around `steps` synchronised steps after 3 warm-up
+    steps; the device idle share from the profiler over 5 more.
+    Returns (steps/s, clouds/s, device ms a step, idle share)."""
+    import torch
+
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.timing import device_profile
+    from articulated_pose_tpu_torch.train.state import (TrainState,
+                                                        dropout_generator,
+                                                        to_device, train_step)
+
+    model = build_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    st = TrainState(model, cfg)
+    batch = to_device(stack(frames), dev)
+    gen = torch.Generator(device=dev)
+    step = [0]
+
+    def one():
+        dropout_generator(gen, cfg.seed, step[0])
+        step[0] += 1
+        return train_step(st, batch, gen)
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    counts = launch_counts()
+    want = expected_launches(fps2=steps, ball_query_group=2 * steps,
+                             three_nn=2 * steps)
+    if counts != want or not bool(m["grads_finite"]):
+        raise AssertionError(f"[train rate] launches {counts} (expected "
+                             f"{want}), grads_finite {m['grads_finite']}")
+    device_ms, ops = device_profile(one, 5)
+    if ops < sum(want.values()) // steps:
+        raise AssertionError(f"[train rate] {ops} device ops a step in the "
+                             f"trace, fewer than the step's kernels")
+    idle = 1.0 - device_ms / (wall * 1e3)
+    B = cfg.batch_size
+    log(f"[train rate] B={B} N={cfg.num_points} {cfg.compute_dtype}: "
+        f"{1 / wall:.2f} steps/s, {B / wall:.1f} clouds/s ({wall * 1e3:.2f} "
+        f"ms a step, host clock over {steps} synchronised steps); device "
+        f"{device_ms:.2f} ms and {ops} ops a step (torch.profiler, 5 "
+        f"steps), idle share {idle:.3f}")
+    return counts
+
+
+def train_path(dev):
+    """Phase 10: `main.py train`'s path in the port.  Returns each
+    sub-path's launch counts."""
+    import tempfile
+
+    import torch
+
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.serving import PosePredictor
+
+    yml = load_config(str(ROOT / "cfg" / "network_config.yml"))
+    if (yml.category, yml.n_max_parts, yml.num_points, yml.batch_size) != (
+            "eyeglasses", 3, TRAIN_N, TRAIN_B):
+        raise AssertionError(f"cfg/network_config.yml changed: {yml}")
+    f32 = yml.replace(compute_dtype="float32")
+    frames = train_frames(f32, TRAIN_RATE_B[-1], seed=0)
+    paths = {}
+    with tempfile.TemporaryDirectory() as work:
+        # (a) 30 steps on one batch, f32, through the trainer's feed
+        prefetch_check(frames, dev)
+        records, paths["train f32"] = fit_and_read(
+            "train f32", f32, frames[:TRAIN_B], pathlib.Path(work) / "f32",
+            TRAIN_STEPS, dev)
+        first, last = records[0]["total_loss"], records[-1]["total_loss"]
+        if not last < 0.8 * first:
+            raise AssertionError(f"[train f32] total_loss {first} -> {last}:"
+                                 " not below 0.8x the first in "
+                                 f"{TRAIN_STEPS} steps")
+        predictor = PosePredictor(f32, work_dir=str(pathlib.Path(work)
+                                                    / "f32"), device=dev)
+        reset_launch_counts()
+        out = predictor(stack(frames[:TRAIN_B])["P"])
+        paths["train checkpoint serve"] = launch_counts()
+        want = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
+        if paths["train checkpoint serve"] != want:
+            raise AssertionError(f"serving the trained checkpoint: launches "
+                                 f"{paths['train checkpoint serve']}, "
+                                 f"expected {want}")
+        for k in ("R", "scale", "t"):
+            if not np.isfinite(getattr(out, k)).all():
+                raise AssertionError(f"serving the trained checkpoint: "
+                                     f"non-finite {k}")
+        seg = (out.segmentation == stack(frames[:TRAIN_B])["cls_gt"]).mean()
+        log(f"[train f32] PosePredictor(work_dir=...) served {TRAIN_B} "
+            f"clouds from the step-{TRAIN_STEPS} checkpoint: finite poses, "
+            f"segmentation accuracy {seg:.3f} on the training batch; "
+            f"launches {paths['train checkpoint serve']}")
+        # (c) the yml as written: bf16 trunk
+        _, paths["train bf16"] = fit_and_read(
+            "train bf16", yml, frames[:TRAIN_B], pathlib.Path(work) / "bf16",
+            TRAIN_BF16_STEPS, dev)
+    # (b) one step, card against CPU, B=2
+    state = build_model(f32, torch.Generator().manual_seed(1)).state_dict()
+    train_card_vs_cpu(f32, state, stack(frames[:2]), dev)
+    # (d) the step's rate at B=16 and B=32
+    for B in TRAIN_RATE_B:
+        paths[f"train rate B={B}"] = train_rate(f32.replace(batch_size=B),
+                                                frames[:B], dev)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1191,6 +1575,13 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"nvcc: {nvcc}")
+    for name in ("scipy", "h5py"):
+        try:
+            importlib.import_module(name)
+            found = "imports"
+        except ImportError as e:
+            found = f"does not import ({e})"
+        log(f"[host] {name}: {found}")
 
     t0 = time.perf_counter()
     seconds = build_all(KERNELS.values())
@@ -1217,6 +1608,8 @@ def main() -> int:
         paths["profile_stages"] = profile_path(dev)
     with phase("9 kernel entries"):
         paths["kernel entries"] = kernel_entries(entries)
+    with phase("10 train"):
+        paths.update(train_path(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

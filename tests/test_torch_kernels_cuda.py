@@ -22,7 +22,8 @@ first hits late in the cloud, N up to 100003, and at the bucket path's
 B=64; the rank-select ball query and the packed 3-NN at the stage
 profiler's B=64; the 3-NN kernel at every (G, C), staged and streamed,
 with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
-every path shape and at (4, 2048 <- 16384).
+every path shape and at (4, 2048 <- 16384).  One train step at the
+reference widths is held against the same step on the CPU.
 """
 
 import numpy as np
@@ -564,9 +565,14 @@ def test_ball_query_refuses_a_plan_the_card_cannot_hold(dev):
     # staged at N = 100003 needs 1.6 MB of shared memory: the launch is
     # refused with the card's error, not run on another plan
     xyz = _cloud(50, 1, 100003, dev)
+    q = xyz[:, :8].contiguous()
     with pytest.raises(RuntimeError, match="launch failed"):
-        ball_query.launch(ball_query.KERNEL, 0.2, 16, xyz, xyz[:, :8].contiguous(),
+        ball_query.launch(ball_query.KERNEL, 0.2, 16, xyz, q,
                           True, ball_query.Plan("g1u4", True))
+    # the refusal is not left behind for the next launch to report
+    got = ball_query.launch(ball_query.KERNEL, 0.2, 16, xyz, q, True)
+    want = ball_query.ball_query_group_plain(0.2, 16, xyz, q, True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 # where nsample's slots crowd the staged cloud out of shared memory
@@ -754,3 +760,66 @@ def test_three_nn_refuses_a_plan_the_card_cannot_hold(dev):
     with pytest.raises(RuntimeError, match="launch failed"):
         three_nn.launch(three_nn.KERNEL, xyz1, xyz2,
                         three_nn.Plan("g1c1", True))
+    # the refusal is not left behind for the next launch to report
+    got = three_nn.launch(three_nn.KERNEL, xyz1, xyz2)
+    want = three_nn.three_nn_plain(xyz1, xyz2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def chip_smoke():
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_device_prefetch_on_the_card(dev):
+    """device_prefetch's batches equal the host batches bit for bit and in
+    order, with its copy stream started late and the consuming stream
+    reading each batch twice, the second time behind a spin (chip_smoke.py
+    phase 10(a)'s `prefetch_check`)."""
+    from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
+
+    gen = SyntheticArticulated(n_parts=3, points_per_part=400, seed=0)
+    rng = np.random.RandomState(3)
+    frames = [gen.frame(rng, num_points=1024)[0] for _ in range(12)]
+    assert chip_smoke().prefetch_check(frames, dev) == 6
+
+
+def test_train_step_gradients_match_the_cpu(dev, monkeypatch):
+    """One train step at the reference widths (eyeglasses, K=3, B=2,
+    N=1024, f32, dropout off) on the card and on the CPU, from the same
+    weights and batch, by chip_smoke.py phase 10(b)'s rule (its
+    `train_card_vs_cpu`: the kernels' outputs equal, the losses within
+    rtol 1e-5; with the CPU's ReLU masks and max-pool selections imposed,
+    each gradient within 1e-3 of its leaf's largest entry, plus 1e-7 of
+    the model's largest; on the card's own routing, at most 1e-4 of
+    those choices differ and each gradient is within 0.1 of the leaf's
+    largest entry); the path's kernel outputs carry no gradient."""
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
+    from articulated_pose_tpu_torch.models import pointnet2
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+
+    outputs = []
+    for name in ("fps2", "ball_query_group", "three_nn"):
+        def record(*args, _fn=getattr(pointnet2, name), **kw):
+            out = _fn(*args, **kw)
+            outputs.extend(t for t in out if t is not None and t.is_cuda)
+            return out
+        monkeypatch.setattr(pointnet2, name, record)
+
+    cfg = NetworkConfig(batch_size=2)
+    gen = SyntheticArticulated(n_parts=3, points_per_part=400, seed=0)
+    rng = np.random.RandomState(0)
+    frames = [gen.frame(rng, num_points=cfg.num_points)[0] for _ in range(2)]
+    batch = {k: np.stack([f[k] for f in frames]) for k in frames[0]}
+    state = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    chip_smoke().train_card_vs_cpu(cfg, state, batch, dev)     # raises
+    # two forwards on the card, each: fps2's 4 tensors; ball_query_group's
+    # grouped and cnt (SA1) and grouped, cnt and idx (SA2); three_nn's
+    # dist and idx, twice
+    assert len(outputs) == 2 * (4 + 5 + 4)
+    assert not any(t.requires_grad for t in outputs)
