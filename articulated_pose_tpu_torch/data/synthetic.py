@@ -1,7 +1,7 @@
 """Synthetic articulated-object generator: a NumPy copy of
-`articulated_pose_tpu/data/synthetic.py` (its labeling path, without the
-C++ fast path and the HDF5 export); for a seed its frames equal the JAX
-package's `frame(..., use_native=False)` bit for bit.
+`articulated_pose_tpu/data/synthetic.py` (without the HDF5 export); for
+a seed its frames equal the JAX package's bit for bit, on the NumPy
+labeling path (`use_native=False`) and on the C++ one (`native/`).
 
 The reference pipelines Shape2Motion/SAPIEN assets through PyBullet
 renders into HDF5 (reference: tools/render_synthetic.py,
@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from articulated_pose_tpu_torch import native
 from articulated_pose_tpu_torch.data.labeling import JointSpec, NormInfo, build_sample
 from articulated_pose_tpu_torch.utils import transforms as tr
 
@@ -116,14 +117,12 @@ class SyntheticArticulated:
               noise: float = 0.0, use_native: Optional[bool] = None):
         """Generate one frame: (sample_dict, FrameGT).
 
-        use_native=True asks for the JAX package's C++ labeling fast path,
-        which is not ported yet, and raises; None and False take the
+        use_native selects the C++ labeling fast path (native/): None
+        takes it where the library builds and the output layout matches
+        (nocs_type 'AC', n_max_parts equal to the part count); True takes
+        it and raises if the library does not build; False takes the
         NumPy labeling.
         """
-        if use_native:
-            raise NotImplementedError(
-                "the native (C++) labeling path is not ported; pass "
-                "use_native=None or False for the NumPy labeling")
         K = n_max_parts or self.n_parts
         states = []
         for jt in self.joint_types:
@@ -153,9 +152,17 @@ class SyntheticArticulated:
                 p = p + rng.randn(*p.shape) * noise
             parts_pts.append(p)
 
-        sample = build_sample(parts_pts, self.parts_canon, self.joints,
-                              self.norm, num_points=num_points,
-                              n_max_parts=K, nocs_type=nocs_type, rng=rng)
+        if use_native is None:
+            use_native = nocs_type == "AC" and K == self.n_parts \
+                and native.available()
+        if use_native:
+            sample = native.build_labels_native(
+                parts_pts, self.parts_canon, self.joints, self.norm,
+                num_points=num_points, n_max_parts=K, rng=rng)
+        else:
+            sample = build_sample(parts_pts, self.parts_canon, self.joints,
+                                  self.norm, num_points=num_points,
+                                  n_max_parts=K, nocs_type=nocs_type, rng=rng)
 
         # ground-truth per-part similarity: NOCS -> input frame.
         # nocs = f_j*(X - box_center_j) + 0.5  =>  X = (nocs-0.5)/f_j + bc_j

@@ -15,6 +15,7 @@ of the mixed-precision policy (ancsh.py:73-96).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -150,23 +151,29 @@ def _dtype_or_none(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def build_model(config, generator: Optional[torch.Generator] = None,
-                device=None) -> ANCSHModel:
+                device=None, spec: Optional[BackboneSpec] = None
+                ) -> ANCSHModel:
     """The model of a NetworkConfig, in eval mode, with the reference's
     initialisation drawn from `generator`.  The ball-query route follows
     `use_pallas` and `ball_query_packed`, the dtypes the mixed-precision
-    knobs, as the JAX package's build_model maps them (ancsh.py:153-186)."""
-    widths = TINY_WIDTHS if config.backbone_preset == "tiny" else {}
+    knobs, as the JAX package's build_model maps them (ancsh.py:153-186).
+    `spec` gives the backbone's widths in place of `backbone_preset`'s
+    (the tests' tiny backbones); the config still sets its dropout rate
+    and ball-query route."""
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
+    if spec is None:
+        spec = BackboneSpec(**(TINY_WIDTHS if config.backbone_preset == "tiny"
+                               else {}))
     model = ANCSHModel(
         n_max_parts=config.n_max_parts,
         mixed=config.is_mixed,
         pred_joint=config.pred_joint,
         early_split_nocs=config.early_split_nocs,
-        backbone_spec=BackboneSpec(
-            dropout_rate=config.dropout_rate,
+        backbone_spec=dataclasses.replace(
+            spec, dropout_rate=config.dropout_rate,
             ball_query_impl="pallas" if config.use_pallas else "xla",
-            ball_query_packed=config.ball_query_packed, **widths),
+            ball_query_packed=config.ball_query_packed),
         dtype=DTYPES[config.compute_dtype],
         head_dtype=_dtype_or_none(config.head_compute_dtype),
         pool_dtype=_dtype_or_none(config.pool_compute_dtype),

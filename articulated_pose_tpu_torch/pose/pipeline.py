@@ -42,6 +42,10 @@ class PoseFitConfig:
     niter_part: int = 128
     niter_joint: int = 64
     inlier_th: float = 0.1
+    # the joint hypotheses' LM iterations under hypo_estimator="lm"
+    # (pipeline.py:52), which still raises; kept so that a JAX config
+    # that sets it builds
+    lm_iters_hypo: int = 10
     lm_iters_refit: int = 6
     part_points: Optional[int] = 1024
     ransac_score_points: Optional[int] = 1024

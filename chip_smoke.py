@@ -8,8 +8,8 @@ Phases (each prints what it found; any failure raises, so the exit code
 is non-zero):
 
 0. Require a CUDA device; print the card (nvidia-smi name and power
-   limit), the torch / CUDA / nvcc versions, and whether scipy and h5py
-   import on the host.
+   limit), the torch / CUDA / nvcc versions, whether scipy and h5py
+   import on the host and whether the native labeling library builds.
 1. Build the CUDA sources from csrc/, one nvcc each, all at once; print
    each kernel's registers, shared memory and spills (ptxas -v).
 2. Hold each of the eleven kernels against its plain PyTorch version at
@@ -88,9 +88,22 @@ is non-zero):
    with the yml's bf16 trunk, finite; (d) train steps/s and clouds/s at
    B=16 and B=32 (f32, host clock around a synchronised window) and the
    device idle share (torch.profiler).
+11. Synthetic e2e (`python -m articulated_pose_tpu_torch.e2e`'s path,
+   the sweep's recipe: B=32, N=1024, f32, reference widths): (a)
+   DeviceSynthetic on the card against the same generator on the CPU,
+   one set of draws, for laptop, eyeglasses and drawer: every label
+   equal, P and the GT poses within 1e-5; (b) 200 fused train steps of
+   laptop with the batches generated on the card, 1 fps2, 2
+   ball_query_group and 2 three_nn launches a step (checked after each
+   step), the loss at step 200 below 0.8x its first value, steps/s and
+   clouds/s on the host clock, device ms, ops and idle share
+   (torch.profiler); (c) 32 held-out card frames through eval_step,
+   fit_frame_batch (niter 1024/128) and evaluate_fits: a report with
+   the JAX e2e report's keys (docs/e2e_laptop_report.json), every value
+   finite; its 5deg5cm is printed, not held (200 steps).
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-10 runs with the launch counts set to 0 just before it and read
+phases 4-11 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -144,6 +157,12 @@ TRAIN_N = 1024
 TRAIN_STEPS = 30
 TRAIN_BF16_STEPS = 5
 TRAIN_RATE_B = (16, 32)
+# phase 11: the e2e recipe (B=32, N=1024) and three categories of the sweep
+# (category, generator seed), laptop first
+E2E_CATEGORIES = (("laptop", 2), ("eyeglasses", 1), ("drawer", 3))
+E2E_STEPS = 200
+E2E_TEST_FRAMES = 32
+E2E_FRAME_TOL = 1e-5
 # phase 10(b), the card's step on its own routing against the CPU's: the
 # share of ReLU and max-pool choices allowed to differ, and the gradient
 # bound a leaf, relative to its scale (the largest measured is 3.4e-2)
@@ -1549,6 +1568,150 @@ def train_path(dev):
     return paths
 
 
+# --------------------------------------------------------------- phase 11
+def e2e_setup(category: str, seed: int, dev, steps: int = E2E_STEPS):
+    """The e2e entry point's flags, part count, joint types, train config
+    and card generator for one category of the sweep."""
+    from articulated_pose_tpu_torch import e2e
+
+    args = e2e.parse_args(["--category", category, "--seed", str(seed),
+                           "--steps", str(steps), "--steps-per-call", "1",
+                           "--test-frames", str(E2E_TEST_FRAMES)])
+    K, joint_types = e2e.category_setup(args)
+    return (args, K, joint_types, e2e.train_config(args, K),
+            e2e.synthetic(args, K, joint_types, dev))
+
+
+def synthetic_card_vs_cpu(dev):
+    """Phase 11(a): DeviceSynthetic on the card against the same
+    generator on the CPU, one set of draws (made on the card, moved to
+    the CPU), B=32, N=1024: every label equal, P and the GT poses within
+    E2E_FRAME_TOL (the card's sin, cos and sums round apart from the
+    CPU's)."""
+    import torch
+
+    from articulated_pose_tpu_torch import e2e
+
+    for category, seed in E2E_CATEGORIES:
+        args, K, joint_types, _, card = e2e_setup(category, seed, dev)
+        host = e2e.synthetic(args, K, joint_types, "cpu")
+        draws = card.draw(torch.Generator(device=dev).manual_seed(seed),
+                          args.batch)
+        got, got_gt = card.frames(draws)
+        want, want_gt = host.frames(draws.to("cpu"))
+        labels = [k for k in want if k != "P"]
+        check_equal(f"[synthetic {category}] labels",
+                    [got[k].cpu() for k in labels], [want[k] for k in labels])
+        devs = {k: (a.cpu() - b).abs().max().item() for k, (a, b) in
+                {"P": (got["P"], want["P"]),
+                 **{f"gt {k}": (got_gt[k], want_gt[k]) for k in want_gt}
+                 }.items()}
+        if not max(devs.values()) <= E2E_FRAME_TOL:
+            raise AssertionError(f"[synthetic {category}] card vs CPU: {devs}")
+        log(f"[synthetic {category}] K={K} B={args.batch} N={args.points} "
+            f"(n_total {card.n_total}): {len(labels)} labels equal, max abs "
+            f"diff " + ", ".join(f"{k} {v:.2e}" for k, v in devs.items())
+            + f" (bound {E2E_FRAME_TOL:g})")
+
+
+def synthetic_e2e(dev):
+    """Phase 11(b, c): laptop, the e2e recipe (B=32, N=1024, f32, reference
+    widths): E2E_STEPS fused steps with the data generated on the card,
+    the launches checked after every step; then E2E_TEST_FRAMES held-out
+    card frames through the eval forward, the pose fit (niter 1024/128)
+    and evaluate_fits.  Returns each sub-path's launch counts."""
+    import torch
+
+    from articulated_pose_tpu_torch import e2e
+    from articulated_pose_tpu_torch.data.device_synthetic import \
+        make_fused_synthetic_train_step
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.timing import device_profile
+    from articulated_pose_tpu_torch.train.state import TrainState
+
+    args, K, joint_types, cfg, dg = e2e_setup("laptop", 2, dev)
+    state = TrainState(build_model(cfg, torch.Generator().manual_seed(0),
+                                   device=dev), cfg)
+    fused = make_fused_synthetic_train_step(cfg, dg, args.batch,
+                                            seed=e2e.DATA_KEY)
+    paths = {}
+    reset_launch_counts()
+    for step in range(E2E_STEPS):
+        m = fused(state, step)
+        if step == 0:
+            first = float(m["total_loss"])      # the one read mid-run
+            t0 = time.perf_counter()
+        want = expected_launches(fps2=step + 1, ball_query_group=2 * (step + 1),
+                                 three_nn=2 * (step + 1))
+        if launch_counts() != want:
+            raise AssertionError(f"[synthetic e2e] after step {step + 1}: "
+                                 f"launches {launch_counts()}, expected {want}")
+    last = {k: float(v) for k, v in m.items()}
+    wall = (time.perf_counter() - t0) / (E2E_STEPS - 1)
+    paths["synthetic e2e train"] = launch_counts()
+    if not (last["grads_finite"] == 1.0 and all(np.isfinite(v)
+                                               for v in last.values())):
+        raise AssertionError(f"[synthetic e2e] step {E2E_STEPS}: {last}")
+    if not last["total_loss"] < 0.8 * first:
+        raise AssertionError(f"[synthetic e2e] total_loss {first} -> "
+                             f"{last['total_loss']}: not below 0.8x the first "
+                             f"in {E2E_STEPS} steps")
+    step = [E2E_STEPS]
+
+    def one():
+        fused(state, step[0])
+        step[0] += 1
+
+    device_ms, ops = device_profile(one, 5)
+    idle = 1.0 - device_ms / (wall * 1e3)
+    log(f"[synthetic e2e] laptop K={K} {E2E_STEPS} fused steps B={args.batch} "
+        f"N={args.points} f32, batches generated on the card: total_loss "
+        f"{first:.4f} -> {last['total_loss']:.4f}; {1 / wall:.2f} steps/s, "
+        f"{args.batch / wall:.1f} clouds/s ({wall * 1e3:.2f} ms a step, host "
+        f"clock over steps 2-{E2E_STEPS}, one read at the end); device "
+        f"{device_ms:.2f} ms and {ops} ops a step (torch.profiler, 5 steps), "
+        f"idle share {idle:.3f}; launches {paths['synthetic e2e train']}")
+
+    reset_launch_counts()
+    ev = e2e.evaluate(state, dg, e2e.pose_config(args, K, joint_types),
+                      E2E_TEST_FRAMES, args.batch, dev)
+    paths["synthetic e2e eval"] = launch_counts()
+    batches = -(-E2E_TEST_FRAMES // args.batch)
+    want = expected_launches(fps2=batches, ball_query_group=2 * batches,
+                             three_nn=2 * batches)
+    if paths["synthetic e2e eval"] != want:
+        raise AssertionError(f"[synthetic e2e eval] launches "
+                             f"{paths['synthetic e2e eval']}, expected {want}")
+    got = e2e.report_json(args, K, joint_types, ev, 0.0, 0, dev)
+    with open(ROOT / "docs" / "e2e_laptop_report.json") as f:
+        ref = json.load(f)
+    for where, g, w in (("report", got, ref),
+                        ("overall", got["overall"], ref["overall"]),
+                        ("per_part", got["per_part"][0], ref["per_part"][0]),
+                        ("per_joint", got["per_joint"][0],
+                         ref["per_joint"][0])):
+        missing = sorted(set(w) - set(g))
+        if missing:
+            raise AssertionError(f"[synthetic e2e eval] {where} lacks the JAX "
+                                 f"report's keys {missing}")
+    numbers = [v for d in (got["overall"], *got["per_part"],
+                           *got["per_joint"]) for v in d.values()]
+    if not np.isfinite(numbers + [got["seg_acc"]]).all():
+        raise AssertionError(f"[synthetic e2e eval] non-finite report: {got}")
+    o = got["overall"]
+    log(f"[synthetic e2e eval] {E2E_TEST_FRAMES} held-out card frames after "
+        f"{E2E_STEPS} steps (not held to the sweep): seg acc "
+        f"{got['seg_acc']:.4f}, 5deg5cm {o['acc_5deg5cm']:.3f}, rot "
+        f"{o['rot_err_deg_mean']:.2f} deg, mIoU {o['miou_mean']:.3f}, joint "
+        f"axis {o['joint_axis_err_deg']:.2f} deg; forward + fit "
+        f"{ev['fit_seconds']:.2f} s, evaluate_fits "
+        f"{ev['evaluate_fits_seconds']:.2f} s (host clock); every value "
+        f"finite, JAX's keys present; launches {paths['synthetic e2e eval']}")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1582,6 +1745,13 @@ def main() -> int:
         except ImportError as e:
             found = f"does not import ({e})"
         log(f"[host] {name}: {found}")
+    from articulated_pose_tpu_torch import native
+    try:
+        native.load()
+        found = "builds and loads"
+    except RuntimeError as e:
+        found = f"does not build ({e})"
+    log(f"[host] native labeling library (g++): {found}")
 
     t0 = time.perf_counter()
     seconds = build_all(KERNELS.values())
@@ -1610,6 +1780,9 @@ def main() -> int:
         paths["kernel entries"] = kernel_entries(entries)
     with phase("10 train"):
         paths.update(train_path(dev))
+    with phase("11 synthetic e2e"):
+        synthetic_card_vs_cpu(dev)
+        paths.update(synthetic_e2e(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -1,9 +1,10 @@
 """The port's host data feed against the JAX package's, on the CPU.
 
 The NumPy copies must give the JAX package's arrays bit for bit for the
-same seeds: synthetic frames and batches (the JAX side on its NumPy
-labeling path, `use_native=False`), `labeling.build_sample`, the transforms
-and the training jitter; the iterators the same order.
+same seeds: synthetic frames (both on the NumPy labeling path,
+`use_native=False`) and batches (both on their default path),
+`labeling.build_sample`, the transforms and the training jitter; the
+iterators the same order.
 `device_prefetch` on the CPU yields the same batches in the same order
 (its card path is driven by chip_smoke.py phase 10).
 """
@@ -40,7 +41,8 @@ def test_frames_equal_jax(seed, nocs_type, n_max_parts):
     r1, r2 = np.random.RandomState(seed + 10), np.random.RandomState(seed + 10)
     for _ in range(2):
         got, got_gt = got_gen.frame(r1, num_points=256, nocs_type=nocs_type,
-                                    n_max_parts=n_max_parts, noise=0.01)
+                                    n_max_parts=n_max_parts, noise=0.01,
+                                    use_native=False)
         want, want_gt = want_gen.frame(r2, num_points=256,
                                        nocs_type=nocs_type,
                                        n_max_parts=n_max_parts, noise=0.01,
@@ -58,18 +60,25 @@ def test_batch_equals_jax_frames(seed):
                                          seed=seed, full_rotation=False)
     jgen = jsynthetic.SyntheticArticulated(n_parts=3, points_per_part=100,
                                            seed=seed, full_rotation=False)
+    # both on their default labeling path: the C++ one where it builds
     got, _ = gen.batch(np.random.RandomState(seed), 3, num_points=128)
     r = np.random.RandomState(seed)
-    frames = [jgen.frame(r, num_points=128, use_native=False)[0]
-              for _ in range(3)]
+    frames = [jgen.frame(r, num_points=128)[0] for _ in range(3)]
     assert_same_sample(got, {k: np.stack([f[k] for f in frames])
                              for k in frames[0]})
 
 
 def test_native_labeling_is_not_ported():
+    """Once raised NotImplementedError; the C++ labeling is ported now,
+    so use_native=True gives the native labels (tests/test_torch_native.py
+    holds them to JAX's) and never quietly the NumPy ones."""
     gen = synthetic.SyntheticArticulated(n_parts=2, points_per_part=50)
-    with pytest.raises(NotImplementedError, match="native"):
-        gen.frame(np.random.RandomState(0), num_points=64, use_native=True)
+    got, _ = gen.frame(np.random.RandomState(0), num_points=64,
+                       use_native=True)
+    want, _ = jsynthetic.SyntheticArticulated(
+        n_parts=2, points_per_part=50).frame(np.random.RandomState(0),
+                                             num_points=64, use_native=True)
+    assert_same_sample(got, want)
 
 
 def test_build_sample_equals_jax():
