@@ -1,8 +1,8 @@
 """Serving and training configuration.
 
 Port of the `articulated_pose_tpu.config.NetworkConfig` fields that the
-forward, the pose fit and the training step read, with the same names
-and defaults, including the mixed-precision policy knobs
+forward, the pose fit, the training step, the data feed and the command
+line read, with the same names and defaults, including the mixed-precision policy knobs
 (`head_compute_dtype`, `pool_compute_dtype`, `act_compute_dtype`,
 `f32_stages`; docs/dtype_ab.md), and the two schedules of the training
 step (`bn_momentum_schedule`, `lr_schedule`).
@@ -97,10 +97,18 @@ class NetworkConfig:
     bn_decay_step: int = 200_000
     val_interval: int = 5000
     snapshot_interval: int = 1000
+    val_prediction_n_keep: int = 2
+
+    # data (config.py:99-109)
+    data_root: str = "data"
+    num_expr: str = "0.01"
+    train_data_add_noise: bool = False
+    thres_r: float = 0.2               # joint-association radius
 
     ransac_niter_part: int = 128
     ransac_niter_joint: int = 64
     ransac_inlier_th: float = 0.1
+    use_gt_joint_association: bool = False
     seed: int = 0
 
     def __post_init__(self):

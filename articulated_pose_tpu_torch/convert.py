@@ -12,7 +12,8 @@ the mapping is by name:
 
 `train_state_from_optax` carries a JAX train state across as well: the
 optax Adam moments and count and the step, so a run stopped mid-training
-continues in the port.
+continues in the port.  `joint_regression_state_dict_from_flax` does the
+same mapping for the joint-regression baseline's nested variables.
 """
 
 from __future__ import annotations
@@ -46,6 +47,28 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
             arr = arr.T
         out[".".join(parts[1:-2] + [leaf])] = torch.tensor(arr)
     return out
+
+
+def _flatten(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}"
+        out.update(_flatten(v, key) if isinstance(v, Mapping)
+                   else {key: v})
+    return out
+
+
+def joint_regression_state_dict_from_flax(params: Mapping,
+                                          batch_stats: Mapping
+                                          ) -> Dict[str, torch.Tensor]:
+    """The nested Flax params and batch stats of JAX's
+    `DirectJointRegression` (numpy leaves, e.g. from `jax.device_get`)
+    -> the state_dict of the port's `models.joint_regression.
+    DirectJointRegression`: backbone/sa1/mlp/conv0/dense/kernel ->
+    backbone.sa1.mlp.conv0.dense.weight, fc3_0/dense/bias -> fc3_0.dense.bias,
+    and so on by `state_dict_from_flax`'s leaf rules."""
+    return state_dict_from_flax({**_flatten(params, "params"),
+                                 **_flatten(batch_stats, "batch_stats")})
 
 
 def load_flax_npz(path: str) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Synthetic articulated-object generator: a NumPy copy of
-`articulated_pose_tpu/data/synthetic.py` (without the HDF5 export); for
-a seed its frames equal the JAX package's bit for bit, on the NumPy
-labeling path (`use_native=False`) and on the C++ one (`native/`).
+`articulated_pose_tpu/data/synthetic.py`; for a seed its frames equal
+the JAX package's bit for bit, on the NumPy labeling path
+(`use_native=False`) and on the C++ one (`native/`), and `export_hdf5`
+writes the same files (it needs h5py, imported at the call).
 
 The reference pipelines Shape2Motion/SAPIEN assets through PyBullet
 renders into HDF5 (reference: tools/render_synthetic.py,
@@ -15,6 +16,7 @@ training smoke tests and the benchmark when no dataset is mounted.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -191,6 +193,60 @@ class SyntheticArticulated:
                      joint_points_cam=jpoints, states=states,
                      rt_naocs2cam=rts_g)
         return sample, gt
+
+    def export_hdf5(self, root_dir: str, category: str, *,
+                    n_instances: int = 2, frames_per_instance: int = 4,
+                    num_expr: str = "0.01", seed: int = 0,
+                    test_fraction: float = 0.25,
+                    instance_names: Optional[Sequence[str]] = None):
+        """Write frames to disk in the reference HDF5 layout.
+
+        Produces <root>/hdf5/<cat>/<ins>/<art>/<frame>.h5 with
+        gt_points/<part> + gt_coords/<part> groups (the schema of
+        tools/preprocess_data.py:337-348), per-instance
+        <root>/info/<cat>/<ins>/model_info.json, and split txts —
+        enabling full-loader tests and demo runs with no external data.
+        """
+        import h5py
+
+        from articulated_pose_tpu_torch.data.hdf5_dataset import InstanceInfo
+
+        rng = np.random.RandomState(seed)
+        train_files, test_files = [], []
+        names = (list(instance_names) if instance_names is not None
+                 else [f"{i:04d}" for i in range(n_instances)])
+        for ins in names:
+            info_dir = os.path.join(root_dir, "info", category, ins)
+            os.makedirs(info_dir, exist_ok=True)
+            InstanceInfo(self.norm, list(self.joints)).dump(
+                os.path.join(info_dir, "model_info.json"))
+            for fr in range(frames_per_instance):
+                states = [rng.uniform(-1.0, 1.0) if jt == "revolute"
+                          else rng.uniform(0.0, 0.3)
+                          for jt in self.joint_types]
+                art = self.articulation_transforms(states)
+                s_cam = rng.uniform(0.8, 1.2)
+                cam = tr.similarity(s_cam, tr.random_rotation(rng),
+                                    rng.uniform(-0.5, 0.5, 3))
+                rel = os.path.join("hdf5", category, ins, "0", f"{fr}.h5")
+                full = os.path.join(root_dir, rel)
+                os.makedirs(os.path.dirname(full), exist_ok=True)
+                with h5py.File(full, "w") as f:
+                    gp = f.create_group("gt_points")
+                    gc = f.create_group("gt_coords")
+                    for j in range(self.n_parts):
+                        pts = tr.apply_similarity(cam @ art[j], self.parts_canon[j])
+                        gp.create_dataset(str(j), data=pts.astype(np.float32))
+                        gc.create_dataset(str(j),
+                                          data=self.parts_canon[j].astype(np.float32))
+                (test_files if fr >= frames_per_instance * (1 - test_fraction)
+                 else train_files).append(rel)
+        split_dir = os.path.join(root_dir, "splits", category, num_expr)
+        os.makedirs(split_dir, exist_ok=True)
+        for name, files in (("train", train_files), ("test", test_files)):
+            with open(os.path.join(split_dir, f"{name}.txt"), "w") as f:
+                f.write("\n".join(files) + "\n")
+        return train_files, test_files
 
     def batch(self, rng: np.random.RandomState, batch_size: int, *,
               num_points: int = 1024, n_max_parts: Optional[int] = None,

@@ -6,11 +6,14 @@ Per frame, batched over frames (B) and parts (K):
    composite key, then one gather of the points and NOCS along each
    part's rows),
 2. per-part RANSAC similarity fits ("baseline"),
-3. per-joint median vote of the predicted joint axis over the points the
-   joint head associates with that joint,
-4. per joint, joint-constrained RANSAC (alternating-Kabsch hypotheses)
-   and a damped Gauss-Newton refit on the best inlier sets
-   ("nonlinear").  Part 0's pose comes from the first joint's solve.
+3. per-joint vote (median, or the normalised mean) of the predicted
+   joint axis over the points associated with that joint: by the joint
+   head, or by the GT labels when `use_gt_association` is set and they
+   are given,
+4. per joint, joint-constrained RANSAC (alternating-Kabsch or full LM
+   hypotheses) and a damped Gauss-Newton refit on the best inlier sets
+   ("nonlinear"); with `batch_joints`, joints of one type are solved in
+   one batched call.  Part 0's pose comes from the first joint's solve.
 
 The randomness comes in as `PoseDraws`, so a run is a pure function of
 its inputs, and the parity tests can hand in the JAX package's draws.
@@ -43,33 +46,39 @@ class PoseFitConfig:
     niter_joint: int = 64
     inlier_th: float = 0.1
     # the joint hypotheses' LM iterations under hypo_estimator="lm"
-    # (pipeline.py:52), which still raises; kept so that a JAX config
-    # that sets it builds
     lm_iters_hypo: int = 10
     lm_iters_refit: int = 6
     part_points: Optional[int] = 1024
     ransac_score_points: Optional[int] = 1024
+    # the joint hypotheses: "alternating" (closed-form Kabsch sweeps) or
+    # "lm" (the full coupled LM per hypothesis, batched over (B, H))
+    hypo_estimator: str = "alternating"
+    # vote the axes over the GT joint labels (`joint_cls_gt` of
+    # fit_frame_batch) when they are given, as the reference's
+    # evaluation/ solver does (pipeline.py:385-386)
+    use_gt_association: bool = False
     joint_types: Tuple[str, ...] = ("revolute", "revolute")
     ransac_chunk: Optional[int] = 512
     lm_refit_points: Optional[int] = 512
-    # only the production choices are ported; the others raise
-    hypo_estimator: str = "alternating"
+    # solve the joints of one type in one batched call (K > 2); the same
+    # draws give the loop's fits (pipeline.py:401-428): bit for bit on
+    # the CPU, to float rounding on the card, whose batched products may
+    # take other kernels at another batch count
     batch_joints: bool = False
     # the reference's two part-buffer builds ("sort", "gather") give the
     # same masked buffers; the port has one (build_part_buffers_sorted),
     # so either name is taken and selects nothing
     buffer_build: str = "sort"
+    # the axis vote: "median" or "mean" (masked mean, normalised)
     axis_agg: str = "median"
 
     def __post_init__(self):
-        if (self.hypo_estimator, self.batch_joints, self.axis_agg) != (
-                "alternating", False, "median"):
-            raise NotImplementedError(
-                "only hypo_estimator='alternating', batch_joints=False and "
-                "axis_agg='median' are ported")
-        if self.buffer_build not in ("sort", "gather"):
-            raise ValueError(f"buffer_build must be 'sort' or 'gather', got "
-                             f"{self.buffer_build!r}")
+        for name, valid in (("hypo_estimator", ("alternating", "lm")),
+                            ("buffer_build", ("sort", "gather")),
+                            ("axis_agg", ("median", "mean"))):
+            if getattr(self, name) not in valid:
+                raise ValueError(f"{name} must be one of {valid}, got "
+                                 f"{getattr(self, name)!r}")
 
 
 @dataclasses.dataclass
@@ -172,10 +181,23 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return ((v.gather(-1, lo) + v.gather(-1, hi)) / 2.0).squeeze(-1)
 
 
-def vote_joint_axes(axis_pp: torch.Tensor, assocs: torch.Tensor) -> torch.Tensor:
-    """Median joint-axis vote. axis_pp (B, N, 3), assocs (B, J, N) {0, 1}
-    -> (B, J, 3); a joint with no associated point falls back to +z."""
-    axes = masked_median(axis_pp.unsqueeze(1), assocs)
+def vote_joint_axes(axis_pp: torch.Tensor, assocs: torch.Tensor,
+                    agg: str = "median") -> torch.Tensor:
+    """Joint-axis vote over the associated points (pipeline.py:225-253).
+    axis_pp (B, N, 3), assocs (B, J, N) {0, 1} -> (B, J, 3).  "median":
+    the per-component median; "mean": the masked mean normalised to unit
+    length (a mean of unit vectors shrinks, and the axis's length scales
+    the joint row of the LM).  A joint with no associated point, or
+    whose mean cancels to under 1e-6, falls back to +z."""
+    if agg == "mean":
+        cnt = assocs.sum(-1, keepdim=True)                        # (B, J, 1)
+        v = (axis_pp.unsqueeze(1) * assocs.unsqueeze(-1)).sum(-2) \
+            / torch.clamp_min(cnt, 1.0)
+        n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        axes = torch.where((cnt > 0) & (n > 1e-6),
+                           v / torch.clamp_min(n, 1e-6), torch.nan)
+    else:
+        axes = masked_median(axis_pp.unsqueeze(1), assocs)
     # +z built on the device: a host-made constant would be a copy that
     # waits for the stream
     z = (torch.arange(3, device=axes.device) == 2).to(axes.dtype)
@@ -192,19 +214,25 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
                      cfg: PoseFitConfig, prismatic: bool):
     """The hypothesis half of the joint RANSAC for one (base, moving-part)
-    pair, batched over frames (pipeline.py:266-301): alternating-Kabsch
-    fits of the drawn minimal samples and their mean inlier ratio over
-    both parts' score prefix.  u0/u1 (B, H, 3) uniforms; buffers
-    (B, P, 3), masks (B, P), jt_axis (B, 3) -> (JointFit of (B, H, ...),
-    scores (B, H))."""
+    pair, batched over frames (pipeline.py:266-301): fits of the drawn
+    minimal samples (alternating Kabsch, or the full LM with
+    `lm_iters_hypo` iterations, by `cfg.hypo_estimator`) and their mean
+    inlier ratio over both parts' score prefix.  u0/u1 (B, H, 3)
+    uniforms; buffers (B, P, 3), masks (B, P), jt_axis (B, 3) ->
+    (JointFit of (B, H, ...), scores (B, H))."""
     B, H = u0.shape[:2]
     i0 = masked_sample_indices(u0, m0)
     i1 = masked_sample_indices(u1, m1)
     ones3 = torch.ones((B, H, 3), dtype=src0.dtype, device=src0.device)
-    fits = joint_transformation_estimate_alt(
-        gather_points(src0, i0), gather_points(tgt0, i0), ones3,
-        gather_points(src1, i1), gather_points(tgt1, i1), ones3,
-        jt_axis.unsqueeze(1).expand(B, H, 3), sweeps=3, prismatic=prismatic)
+    args = (gather_points(src0, i0), gather_points(tgt0, i0), ones3,
+            gather_points(src1, i1), gather_points(tgt1, i1), ones3,
+            jt_axis.unsqueeze(1).expand(B, H, 3))
+    if cfg.hypo_estimator == "lm":
+        fits = joint_transformation_estimate(
+            *args, lm_iters=cfg.lm_iters_hypo, prismatic=prismatic)
+    else:
+        fits = joint_transformation_estimate_alt(*args, sweeps=3,
+                                                 prismatic=prismatic)
 
     P = src0.shape[1]
     sp = cfg.ransac_score_points
@@ -246,22 +274,54 @@ def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
 
 
 def fit_frame(pred: Dict[str, torch.Tensor], P: torch.Tensor,
-              draws: PoseDraws, cfg: PoseFitConfig) -> Dict[str, torch.Tensor]:
-    """One frame: pred values (N, ...), P (N, 3), draws without the batch
-    axis -> fit_frame_batch's outputs without the batch axis."""
+              draws: PoseDraws, cfg: PoseFitConfig,
+              joint_cls_gt: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
+    """One frame: pred values (N, ...), P (N, 3), draws (and joint_cls_gt)
+    without the batch axis -> fit_frame_batch's outputs without it."""
     out = fit_frame_batch({k: v[None] for k, v in pred.items()}, P[None],
-                          PoseDraws(draws.part[None], draws.joint[None]), cfg)
+                          PoseDraws(draws.part[None], draws.joint[None]), cfg,
+                          None if joint_cls_gt is None else joint_cls_gt[None])
     return {k: v[0] for k, v in out.items()}
 
 
+def _joint_group(js, draws: PoseDraws, src, tgt, mask, axes,
+                 cfg: PoseFitConfig, prismatic: bool):
+    """The joints `js` (all of one type) solved in one batched call: the
+    frames and the joints flattened into one batch axis, the base part's
+    buffers repeated for each joint.  Returns the JointFit with a
+    (B, len(js)) batch shape.  The loop solves one joint a call through
+    the same function, so the two give the same fits."""
+    B, J = src.shape[0], len(js)
+
+    def flat(x, idx):            # (B, ...) slices x[:, i] -> (B*J, ...)
+        if J == 1:               # the loop's call: the slice itself
+            return x[:, idx[0]]
+        # stacked from slices: an index tensor made on the host would be
+        # a copy that waits for the stream
+        return torch.stack([x[:, i] for i in idx], 1).reshape(
+            (B * J,) + x.shape[2:])
+
+    moving, joint, base = js, [j - 1 for j in js], [0] * J
+    fit = _joint_ransac(
+        flat(draws.joint[:, :, 0], joint), flat(draws.joint[:, :, 1], joint),
+        flat(src, base), flat(tgt, base), flat(mask, base),
+        flat(src, moving), flat(tgt, moving), flat(mask, moving),
+        flat(axes, joint), cfg, prismatic)
+    return type(fit)(*(x.reshape((B, J) + x.shape[1:]) for x in fit))
+
+
 def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
-                    draws: PoseDraws, cfg: PoseFitConfig
+                    draws: PoseDraws, cfg: PoseFitConfig,
+                    joint_cls_gt: Optional[torch.Tensor] = None
                     ) -> Dict[str, torch.Tensor]:
     """Fit every part pose of a batch of frames.
 
     pred: W (B, N, K), nocs_per_point (B, N, 3K), and for the joint
     stage joint_axis_per_point (B, N, 3) and index_per_point (B, N, K);
-    P (B, N, 3) input clouds.  Returns baseline_{R,s,t} (B, K, 3, 3) /
+    P (B, N, 3) input clouds; joint_cls_gt (B, N), the GT joint labels
+    that the axis vote takes in place of the joint head's under
+    `cfg.use_gt_association`.  Returns baseline_{R,s,t} (B, K, 3, 3) /
     (B, K) / (B, K, 3), nonlinear_{R,s,t} when the joint heads are
     present, and part_counts (B, K).
     """
@@ -278,24 +338,37 @@ def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
     out = {"baseline_R": fits.R, "baseline_s": fits.s, "baseline_t": fits.t}
 
     if "joint_axis_per_point" in pred:
-        assoc_cls = pred["index_per_point"].argmax(dim=-1)         # (B, N)
+        if cfg.use_gt_association and joint_cls_gt is not None:
+            assoc_cls = joint_cls_gt
+        else:
+            assoc_cls = pred["index_per_point"].argmax(dim=-1)     # (B, N)
         joint_ids = torch.arange(1, K, device=P.device)
         assocs = (assoc_cls.unsqueeze(1) == joint_ids[:, None]).to(P.dtype)
-        axes = vote_joint_axes(pred["joint_axis_per_point"], assocs)
+        axes = vote_joint_axes(pred["joint_axis_per_point"], assocs,
+                               cfg.axis_agg)
 
+        # joint groups in the order they are solved: one a joint, or with
+        # batch_joints (K > 2) one a type, in order of first appearance
+        groups = {}
+        for j in range(1, K):
+            prismatic = cfg.joint_types[j - 1] == "prismatic"
+            key = prismatic if cfg.batch_joints and K > 2 else j
+            groups.setdefault(key, (prismatic, []))[1].append(j)
         # a single-part object has no joint: its baseline pose stands
         nl_R, nl_s, nl_t = ([fits.R[:, 0]] + [None] * (K - 1),
                             [fits.s[:, 0]] + [None] * (K - 1),
                             [fits.t[:, 0]] + [None] * (K - 1))
-        for j in range(1, K):
-            fit = _joint_ransac(
-                draws.joint[:, j - 1, 0], draws.joint[:, j - 1, 1],
-                src[:, 0], tgt[:, 0], mask[:, 0], src[:, j], tgt[:, j],
-                mask[:, j], axes[:, j - 1], cfg,
-                cfg.joint_types[j - 1] == "prismatic")
-            if j == 1:  # part 0 from the first joint's solve
-                nl_R[0], nl_s[0], nl_t[0] = fit.R0, fit.s0, fit.t0
-            nl_R[j], nl_s[j], nl_t[j] = fit.R1, fit.s1, fit.t1
+        first = True
+        for prismatic, js in groups.values():
+            fit = _joint_group(js, draws, src, tgt, mask, axes, cfg,
+                               prismatic)
+            if first:  # part 0 from the first solve
+                nl_R[0], nl_s[0], nl_t[0] = fit.R0[:, 0], fit.s0[:, 0], \
+                    fit.t0[:, 0]
+                first = False
+            for i, j in enumerate(js):
+                nl_R[j], nl_s[j], nl_t[j] = (fit.R1[:, i], fit.s1[:, i],
+                                             fit.t1[:, i])
         out.update({"nonlinear_R": torch.stack(nl_R, 1),
                     "nonlinear_s": torch.stack(nl_s, 1),
                     "nonlinear_t": torch.stack(nl_t, 1)})

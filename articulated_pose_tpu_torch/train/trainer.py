@@ -183,23 +183,56 @@ class Trainer:
     def validate(self, val_data: Iterable,
                  save_predictions: bool = False) -> Dict[str, float]:
         """Metrics averaged over a validation set's frames, each batch
-        weighted by its size (trainer.py:181-212)."""
-        if save_predictions:
-            raise NotImplementedError(
-                "validate(save_predictions=True) writes the reference's "
-                "prediction h5 files through utils/prediction_io.py, which "
-                "comes with the eval + CLI item of ROADMAP queue A")
+        weighted by its size (trainer.py:181-212).  With
+        `save_predictions`, one prediction h5 a frame (the reference
+        schema, `utils/prediction_io.py`; named by the set's `basenames`
+        where it has them) goes into val_pred/step<N>/, and only the
+        newest `config.val_prediction_n_keep` step directories stay."""
         sums: Dict[str, torch.Tensor] = {}
         n = 0
+        save_dir = None
+        basenames = list(getattr(val_data, "basenames", []))
+        if save_predictions:
+            from articulated_pose_tpu_torch.utils.prediction_io import \
+                save_batch_predictions
+
+            save_dir = os.path.join(self.work_dir, "val_pred",
+                                    f"step{int(self.state.step)}")
         for batch in device_prefetch(val_data, size=2, device=self.device):
-            _, metrics = eval_step(self.state, batch)
+            pred, metrics = eval_step(self.state, batch)
             bs = batch["P"].shape[0]
+            if save_dir is not None:
+                names = (basenames[n:n + bs] if len(basenames) >= n + bs
+                         else [f"frame_{n + i}" for i in range(bs)])
+                save_batch_predictions(_to_numpy(pred), _to_numpy(batch),
+                                       names, save_dir)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v * bs
             n += bs
+        if save_dir is not None:
+            self._gc_val_predictions()
         return {k: float(v) / max(n, 1) for k, v in sums.items()}
+
+    def _gc_val_predictions(self):
+        """Keep only the newest val_prediction_n_keep step directories
+        (-1 keeps all; trainer.py:202-220)."""
+        import shutil
+
+        n_keep = self.config.val_prediction_n_keep
+        root = os.path.join(self.work_dir, "val_pred")
+        if n_keep == -1 or not os.path.isdir(root):
+            return
+        dirs = sorted((int(m.group(1)), d) for d in os.listdir(root)
+                      if (m := re.fullmatch(r"step(\d+)", d))
+                      and os.path.isdir(os.path.join(root, d)))
+        for _, d in dirs[:-n_keep] if n_keep else dirs:
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
 
     def predict(self, batch: Dict) -> Dict:
         """The eval-mode predictions of one batch, as numpy."""
         pred, _ = eval_step(self.state, batch)
-        return {k: v.cpu().numpy() for k, v in pred.items()}
+        return _to_numpy(pred)
+
+
+def _to_numpy(tensors: Dict[str, torch.Tensor]) -> Dict:
+    return {k: v.cpu().numpy() for k, v in tensors.items()}

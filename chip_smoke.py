@@ -101,9 +101,29 @@ is non-zero):
    fit_frame_batch (niter 1024/128) and evaluate_fits: a report with
    the JAX e2e report's keys (docs/e2e_laptop_report.json), every value
    finite; its 5deg5cm is printed, not held (200 steps).
+12. The command line (`python -m articulated_pose_tpu_torch`), through
+   `main.main(argv)` in this process, eyeglasses, f32, reference widths,
+   B=16, N=1024, 64 synthetic frames: (a) `demo`, 30 steps, the final
+   loss finite, 1 fps2, 2 ball_query_group and 2 three_nn launches a
+   step, its steps/s; (b) `eval --synthetic` restores step 30, in NPCS,
+   in NAOCS and with `use_gt_joint_association: true` from a `--config`
+   file: each report has JAX's top-level keys and finite values, each
+   run's launches (4 batches) and seconds; (c) `serve --input` (40
+   clouds: a short last batch) and `serve --synthetic`, each equal to
+   serve_clouds on a PosePredictor of the same checkpoint (within 1e-5;
+   seg and part counts exact), clouds/s through the command; (d) `demo`
+   then `eval --model joint_baseline` (2 fps and 2 ball_query_group
+   launches a step and a forward, joint_baseline_eval.json written) and
+   the joint-baseline train step's ms, steps/s, device ms, ops and idle
+   share, and its device time by kernel (the six largest); (e) the four pose-fit knobs (use_gt_association, axis_agg
+   "mean", batch_joints, hypo_estimator "lm") on phase 3's oracle frames
+   within phase 3's bounds, batch_joints against the loop within 1e-5;
+   (f) with h5py: export_hdf5 -> `train --data_root` (3 steps) -> `test`
+   -> `eval --from_pred`; without it: `test --data_root` raises
+   ImportError naming h5py.
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-11 runs with the launch counts set to 0 just before it and read
+phases 4-12 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -163,6 +183,17 @@ E2E_CATEGORIES = (("laptop", 2), ("eyeglasses", 1), ("drawer", 3))
 E2E_STEPS = 200
 E2E_TEST_FRAMES = 32
 E2E_FRAME_TOL = 1e-5
+# phase 12: the command line at cfg/network_config.yml's shape (eyeglasses,
+# B=16, N=1024), main.py demo's 30 steps and its 64 synthetic frames; a
+# serve input of two full batches and a short one
+CLI_B = 16
+CLI_N = 1024
+CLI_STEPS = 30
+CLI_FRAMES = 64
+CLI_SERVE_CLOUDS = 40
+CLI_REPORT_KEYS = {"per_part", "overall", "per_joint", "n_frames",
+                   "n_dropped"}
+JB_RATE_STEPS = 20
 # phase 10(b), the card's step on its own routing against the CPU's: the
 # share of ReLU and max-pool choices allowed to differ, and the gradient
 # bound a leaf, relative to its scale (the largest measured is 3.4e-2)
@@ -426,7 +457,8 @@ def torch_cloud(rng, B: int, N: int, dev):
 def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
                      whole_cloud=False, point_flops=NORM_FLOPS):
     """A grouped ball query at each (points, queries, radius, emit_idx)
-    of its path, S=64: cnt and idx equal, coordinates within
+    or (points, queries, radius, emit_idx, nsample) of its path, S=64
+    where the case names none: cnt and idx equal, coordinates within
     coord_bound.  The emit_idx=False launch must give the same
     coordinates and counts.  The bound counts the points each query has
     to examine: up to its 64th hit, or the whole cloud (`whole_cloud`,
@@ -436,32 +468,33 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
     from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
 
     err, times, shapes, bounds = 0.0, [], [], []
-    for pts, q, r, emit in cases:
-        g, cnt, idx = kernel_fn(r, 64, pts, q, emit_idx=True)
-        gp, cntp, idxp = plain_fn(r, 64, pts, q)
-        g2, cnt2, _ = kernel_fn(r, 64, pts, q, emit_idx=False)
+    for pts, q, r, emit, *nsample in cases:
+        S = nsample[0] if nsample else 64
+        g, cnt, idx = kernel_fn(r, S, pts, q, emit_idx=True)
+        gp, cntp, idxp = plain_fn(r, S, pts, q)
+        g2, cnt2, _ = kernel_fn(r, S, pts, q, emit_idx=False)
         check_equal(f"{name} r={r} cnt/idx", (cnt, idx, cnt2),
                     (cntp, idxp, cntp))
         e = max((g - gp).abs().max().item(), (g2 - gp).abs().max().item())
         if e > coord_bound:
             raise AssertionError(f"{name} r={r}: grouped xyz off by {e}")
         err = max(err, e)
-        t = time_both(lambda: kernel_fn(r, 64, pts, q, emit_idx=emit),
-                      lambda: plain_fn(r, 64, pts, q, emit_idx=emit))
+        t = time_both(lambda: kernel_fn(r, S, pts, q, emit_idx=emit),
+                      lambda: plain_fn(r, S, pts, q, emit_idx=emit))
         B, N = pts.shape[:2]
         M = q.shape[1]
         if whole_cloud:
-            plan = bq_plan(B, N, M, 64, bucket=True)
+            plan = bq_plan(B, N, M, S, bucket=True)
             pairs = B * M * N
             scan = (f"{N} points examined per query; plan {plan.variant} "
                     f"{'staged' if plan.staged else 'streamed'}")
         else:
             pairs, most = scanned_points(idxp, cntp, N)
-            scan = bq_note(pairs, most, B * M, bq_plan(B, N, M, 64))
+            scan = bq_note(pairs, most, B * M, bq_plan(B, N, M, S))
         bounds.append(bound(pairs * PAIR_FLOPS + B * N * point_flops
                             + B * M * NORM_FLOPS, pts, q, g, cnt,
                             idx if emit else None))
-        shape = f"B{B} N{N} M{M} S64 r{r} emit_idx={emit}"
+        shape = f"B{B} N{N} M{M} S{S} r{r} emit_idx={emit}"
         log(f"[kernels] {name} {shape}: cnt, idx equal, grouped max abs "
             f"err {e:.3g}; {t[4]}; {bound_note(bounds[-1])} (mean cnt "
             f"{cnt.float().mean().item():.2f}, {scan})")
@@ -630,9 +663,18 @@ def compare_kernels(dev):
     _, bxyz1, _, bxyz2 = fps.fps2(P64, 512, 128)
     serve_cases = ((cloud, xyz1, 0.2, False), (xyz1, xyz2, 0.4, True),
                    (P64, bxyz1, 0.2, False), (bxyz1, bxyz2, 0.4, True))
+    # the joint baseline's SA1 (N -> 512, r 0.2, S 32, idx not emitted)
+    # and SA2 (512 -> 128, r 0.4, S 64) at phase 12's batch, on B2's
+    # picks (models/joint_regression.py SA_STAGES)
+    jcloud = torch.from_numpy(np.random.RandomState(12).rand(
+        CLI_B, CLI_N, 3).astype(np.float32)).to(dev)
+    jxyz1 = fps.fps(jcloud, 512)[1]
+    jxyz2 = fps.fps(jxyz1, 128)[1]
     results["ball_query_group"] = compare_grouping(
         "ball_query_group", ball_query.ball_query_group,
-        ball_query.ball_query_group_plain, serve_cases, 0.0)
+        ball_query.ball_query_group_plain,
+        serve_cases + ((jcloud, jxyz1, 0.2, False, 32),
+                       (jxyz1, jxyz2, 0.4, True, 64)), 0.0)
     results["ball_query_group_packed"] = compare_grouping(
         "ball_query_group_packed", ball_query.ball_query_group_packed,
         ball_query.ball_query_group_packed_plain, serve_cases, 0.0,
@@ -640,7 +682,8 @@ def compare_kernels(dev):
 
     # B2: the serving cloud's first level, the N-level path's chain
     # 8192 -> 1024 -> 256 -> 64 -> 16, each level on the last one's
-    # picks, and the stage profiler's fps1 / fps2 (below)
+    # picks, the stage profiler's fps1 / fps2 (below) and the joint
+    # baseline's SA1 / SA2
     nlevel = torch.from_numpy(
         rng.rand(NLEVEL_B, NLEVEL_N, 3).astype(np.float32)).to(dev)
     chain, levels = [], [nlevel]
@@ -648,7 +691,8 @@ def compare_kernels(dev):
         chain.append((levels[-1], npoint))
         levels.append(fps.fps(levels[-1], npoint)[1])
     results["fps"] = compare_fps_single([(cloud, 512)] + chain
-                                        + [(P64, 512), (Q1, 128)])
+                                        + [(P64, 512), (Q1, 128),
+                                           (jcloud, 512), (jxyz1, 128)])
     fps_ties_and_slices(dev)
 
     # B8 at SA1 and SA2 of the serving batch and of the bucket path's
@@ -1712,6 +1756,417 @@ def synthetic_e2e(dev):
     return paths
 
 
+# --------------------------------------------------------------- phase 12
+def run_cli(label: str, argv):
+    """`articulated_pose_tpu_torch.main.main(argv)` in this process, its
+    output captured and echoed, with the launch counts set to 0 just
+    before.  Returns (stdout, host seconds, launch counts)."""
+    import contextlib
+    import io
+
+    from articulated_pose_tpu_torch import main as cli
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"[cli {label}] {line}")
+    return out, seconds, counts
+
+
+def check_launches(label: str, counts, **want):
+    want = expected_launches(**want)
+    if counts != want:
+        raise AssertionError(f"[cli {label}] launches {counts}, expected "
+                             f"{want}")
+
+
+def check_report(label: str, path: pathlib.Path):
+    """An eval report: JAX's top-level keys, every number finite."""
+    with open(path) as f:
+        report = json.load(f)
+    if set(report) != CLI_REPORT_KEYS:
+        raise AssertionError(f"[cli {label}] report keys {sorted(report)}, "
+                             f"expected JAX's {sorted(CLI_REPORT_KEYS)}")
+    numbers = [v for d in (report["overall"], *report["per_part"],
+                           *report["per_joint"]) for v in d.values()]
+    if not np.isfinite(numbers).all():
+        raise AssertionError(f"[cli {label}] non-finite report: {report}")
+    return report
+
+
+def cli_demo_eval(work: pathlib.Path, common):
+    """Phase 12(a, b): demo, then eval --synthetic in NPCS, NAOCS and with
+    the GT joint association from a config file."""
+    common = [*common, "--work_dir", str(work)]
+    out, seconds, counts = run_cli("demo", ["demo", *common,
+                                            "--max_steps", str(CLI_STEPS)])
+    final = json.loads(out.split("final:")[1].strip())
+    if not np.isfinite(final["total_loss"]):
+        raise AssertionError(f"[cli demo] final loss {final}")
+    check_launches("demo", counts, fps2=CLI_STEPS,
+                   ball_query_group=2 * CLI_STEPS, three_nn=2 * CLI_STEPS)
+    log(f"[cli demo] eyeglasses B={CLI_B} N={CLI_N} f32 reference widths: "
+        f"{CLI_STEPS} steps in {final['elapsed_s']:.2f} s of Trainer.fit, "
+        f"{CLI_STEPS / final['elapsed_s']:.2f} steps/s ({seconds:.2f} s for "
+        f"the whole command, frames and model build included); launches "
+        f"{counts}")
+    paths = {"cli demo": counts}
+    gt_yml = work / "gt_association.yml"
+    gt_yml.write_text("use_gt_joint_association: true\n")
+    batches = CLI_FRAMES // CLI_B
+    for label, extra in (("eval NPCS", []), ("eval NAOCS", ["--nocs", "NAOCS"]),
+                         ("eval GT association", ["--config", str(gt_yml)])):
+        out, seconds, counts = run_cli(label, ["eval", "--synthetic",
+                                               *common, *extra])
+        if f"restored checkpoint step {CLI_STEPS}" not in out:
+            raise AssertionError(f"[cli {label}] did not restore step "
+                                 f"{CLI_STEPS}")
+        check_launches(label, counts, fps2=batches,
+                       ball_query_group=2 * batches, three_nn=2 * batches)
+        o = check_report(label, work / "eval_all.json")["overall"]
+        log(f"[cli {label}] {CLI_FRAMES} frames in {seconds:.2f} s (host "
+            f"clock, the whole command; niter 128/64): 5deg5cm "
+            f"{o['acc_5deg5cm']:.3f}, rot {o['rot_err_deg_mean']:.2f} deg; "
+            f"JAX's report keys, every value finite; launches {counts}")
+        paths[f"cli {label}"] = counts
+    return paths
+
+
+def cli_serve(work: pathlib.Path, common, dev):
+    """Phase 12(c): serve --input (a short last batch) and serve
+    --synthetic, each against serve_clouds on a PosePredictor of the same
+    checkpoint."""
+    from articulated_pose_tpu_torch import main as cli
+    from articulated_pose_tpu_torch.serving import PosePredictor, serve_clouds
+
+    common = [*common, "--work_dir", str(work)]
+    args = cli.parse_args(["serve", *common, "--synthetic"])
+    cfg, spec = cli.build_config(args)
+    clouds = stack(train_frames(cfg, CLI_SERVE_CLOUDS, seed=5))["P"]
+    np.save(work / "clouds.npy", clouds)
+    # what serve --synthetic serves: the synthetic test split's clouds
+    synthetic = np.concatenate(
+        [b["P"] for b in cli.make_datasets(args, cfg, spec, "test")])
+    predictor = PosePredictor(cfg, work_dir=str(work), device=dev)
+    paths = {}
+    for label, extra, clouds in (
+            ("serve --input", ["--input", str(work / "clouds.npy")], clouds),
+            ("serve --synthetic", ["--synthetic"], synthetic)):
+        out_npz = work / "poses.npz"
+        out, seconds, counts = run_cli(label, ["serve", *common, *extra,
+                                               "--output", str(out_npz)])
+        n = len(clouds)
+        batches = -(-n // CLI_B)
+        check_launches(label, counts, fps2=batches,
+                       ball_query_group=2 * batches, three_nn=2 * batches)
+        got = np.load(out_npz)
+        want = serve_clouds(predictor, clouds, CLI_B)
+        devs = {}
+        for k in want:
+            if got[k].shape != want[k].shape or got[k].shape[0] != n:
+                raise AssertionError(f"[cli {label}] {k}: {got[k].shape} vs "
+                                     f"{want[k].shape}")
+            devs[k] = float(np.abs(got[k].astype(np.float64)
+                                   - want[k]).max())
+        if devs["seg"] or devs["part_counts"] or max(devs.values()) > 1e-5:
+            raise AssertionError(f"[cli {label}] against serve_clouds: {devs}")
+        log(f"[cli {label}] {n} clouds (batches of {CLI_B}, the last "
+            f"{n - (batches - 1) * CLI_B}) in {seconds:.2f} s: "
+            f"{n / seconds:.1f} clouds/s through the command (predictor "
+            f"build and checkpoint load included); against serve_clouds: "
+            f"max abs diff " + ", ".join(f"{k} {v:.1e}"
+                                         for k, v in devs.items())
+            + f"; launches {counts}")
+        paths[f"cli {label}"] = counts
+    return paths
+
+
+def device_breakdown(fn, calls: int = 3, top: int = 6):
+    """Device time of `fn` by kernel name from torch.profiler over
+    `calls` calls after one warm-up: (device ms a call, [(name, ms a
+    call, share)] of the `top` largest).  A trace can lose its first
+    events, so this is a breakdown, not the step's device time (that is
+    `timing.device_profile`'s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    sums = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            sums[e.name] = sums.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(sums.values()) or 1.0
+    rows = sorted(sums.items(), key=lambda kv: -kv[1])[:top]
+    return (total / calls / 1e3,
+            [(name, us / calls / 1e3, us / total) for name, us in rows])
+
+
+def joint_baseline_kernels(P):
+    """Phase 12(d): B2 `fps` and B3 `ball_query_group` on the joint
+    baseline's own batch, called as its SA1 and SA2 call them (SA1 emits
+    no idx), with and without idx: every output equal to the plain
+    version's."""
+    from articulated_pose_tpu_torch.models.joint_regression import SA_STAGES
+    from articulated_pose_tpu_torch.ops.kernels import ball_query, fps
+
+    xyz, shapes = P[..., :3].float().contiguous(), []
+    for npoint, r, S, _ in SA_STAGES:
+        B, N, _ = xyz.shape
+        got = fps.fps(xyz, npoint)
+        check_equal(f"fps joint baseline B{B} N{N}->{npoint}", got,
+                    fps.fps_plain(xyz, npoint))
+        q = got[1]
+        gp, cntp, idxp = ball_query.ball_query_group_plain(r, S, xyz, q)
+        g, cnt, idx = ball_query.ball_query_group(r, S, xyz, q, emit_idx=True)
+        g2, cnt2, _ = ball_query.ball_query_group(r, S, xyz, q,
+                                                  emit_idx=False)
+        check_equal(f"ball_query_group joint baseline B{B} N{N} "
+                    f"M{npoint} S{S}", (g, cnt, idx, g2, cnt2),
+                    (gp, cntp, idxp, gp, cntp))
+        shapes.append(f"fps B{B} N{N}->{npoint}, ball_query_group M{npoint} "
+                      f"S{S} r{r} (mean cnt {cnt.float().mean().item():.2f}, "
+                      f"{int((cnt >= S).sum())} of {cnt.numel()} queries "
+                      f"stop at S)")
+        xyz = q
+    log(f"[cli joint_baseline kernels] on the train batch's own cloud: "
+        f"{'; '.join(shapes)}: every output equal to the plain version's")
+
+
+def joint_baseline_rate(dev):
+    """Phase 12(d): the joint-baseline train step on a batch on the card,
+    B=16, N=1024: host clock around JB_RATE_STEPS synchronised steps
+    after 3 warm-up steps; device ms, ops and idle share from the
+    profiler over 5 more.  Returns the launch counts of the timed
+    steps."""
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.timing import device_profile
+    from articulated_pose_tpu_torch.train.joint_baseline import \
+        JointBaselineTrainer
+    from articulated_pose_tpu_torch.train.state import to_device
+
+    import tempfile
+
+    import torch
+
+    cfg = load_config(category="eyeglasses", n_max_parts=3,
+                      batch_size=CLI_B, num_points=CLI_N)
+    with tempfile.TemporaryDirectory() as work:
+        tr = JointBaselineTrainer(cfg, work, device=dev)
+        batch = to_device(stack(train_frames(cfg, CLI_B, seed=7)), dev)
+        for _ in range(3):
+            tr.train_step(batch)
+        joint_baseline_kernels(batch["P"])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(JB_RATE_STEPS):
+            m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / JB_RATE_STEPS
+        counts = launch_counts()
+        check_launches("joint_baseline rate", counts, fps=2 * JB_RATE_STEPS,
+                       ball_query_group=2 * JB_RATE_STEPS)
+        if not np.isfinite(float(m["total_loss"])):
+            raise AssertionError(f"[cli joint_baseline rate] {m}")
+        device_ms, ops = device_profile(lambda: tr.train_step(batch), 5)
+        traced_ms, rows = device_breakdown(lambda: tr.train_step(batch))
+    idle = 1.0 - device_ms / (wall * 1e3)
+    log(f"[cli joint_baseline rate] B={CLI_B} N={CLI_N} f32: "
+        f"{wall * 1e3:.2f} ms a step, {1 / wall:.2f} steps/s, "
+        f"{CLI_B / wall:.1f} clouds/s (host clock over {JB_RATE_STEPS} "
+        f"synchronised steps); device {device_ms:.2f} ms and {ops} ops a "
+        f"step (torch.profiler, 5 steps), idle share {idle:.3f}; launches "
+        f"{counts}")
+    log(f"[cli joint_baseline rate] the step's device time by kernel "
+        f"(torch.profiler, 3 steps, {traced_ms:.2f} ms a step traced): "
+        + "; ".join(f"{name[:70]} {ms:.3f} ms ({share:.1%})"
+                    for name, ms, share in rows))
+    return counts
+
+
+def cli_joint_baseline(work: pathlib.Path, common, dev):
+    """Phase 12(d): demo then eval --model joint_baseline, and the train
+    step's rate."""
+    jb = ["--model", "joint_baseline", *common, "--work_dir", str(work / "jb")]
+    out, seconds, counts = run_cli("joint_baseline demo",
+                                   ["demo", *jb, "--max_steps",
+                                    str(CLI_STEPS)])
+    batches = CLI_FRAMES // CLI_B
+    check_launches("joint_baseline demo", counts,
+                   fps=2 * (CLI_STEPS + batches),
+                   ball_query_group=2 * (CLI_STEPS + batches))
+    res = json.loads(out.split("joint_baseline:")[1].strip())
+    if not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"[cli joint_baseline demo] {res}")
+    paths = {"cli joint_baseline demo": counts}
+    out, seconds, counts = run_cli("joint_baseline eval",
+                                   ["eval", "--synthetic", *jb])
+    check_launches("joint_baseline eval", counts, fps=2 * batches,
+                   ball_query_group=2 * batches)
+    with open(work / "jb" / "joint_baseline_eval.json") as f:
+        saved = json.load(f)
+    if f'"resumed_step": {CLI_STEPS}.0' not in out or set(saved) != {
+            "joint_axis_err_deg", "joint_offset_err", "n_joints_evaluated"}:
+        raise AssertionError(f"[cli joint_baseline eval] {out} {saved}")
+    log(f"[cli joint_baseline] demo {CLI_STEPS} steps + eval of "
+        f"{CLI_FRAMES} frames, then eval alone ({seconds:.2f} s): "
+        f"joint_baseline_eval.json written, every value finite")
+    paths["cli joint_baseline eval"] = counts
+    paths["cli joint_baseline rate"] = joint_baseline_rate(dev)
+    return paths
+
+
+def pose_knobs(dev):
+    """Phase 12(e): the four pose-fit knobs on phase 3's oracle frames,
+    within phase 3's bounds; batch_joints=True against the loop on the
+    same draws.  use_gt_association runs on frames whose joint head
+    misleads: it gives part 0's points (which predict the x axis) to
+    joint 1 and part 1's to joint 2, so that the head's vote for joint 1
+    is x and the GT labels' is z; the knob's fit must keep phase 3's
+    bounds and differ from the fit without it."""
+    import dataclasses
+
+    import torch
+
+    from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws,
+                                                          PoseFitConfig,
+                                                          fit_frame_batch)
+
+    K = 3
+    P, pred, (gR, gs, gt) = articulated_frames(np.random.RandomState(1),
+                                               ORACLE_FRAMES, N_POINTS, K)
+    labels = pred["index_per_point"].argmax(-1)           # GT joint labels
+    misled = dict(pred)
+    misled["index_per_point"] = np.eye(K, dtype=np.float32)[
+        np.where(labels == 0, 1, 2)]
+    misled["joint_axis_per_point"] = pred["joint_axis_per_point"].copy()
+    misled["joint_axis_per_point"][labels == 0] = [1.0, 0.0, 0.0]
+
+    def on_card(p):
+        return {k: torch.from_numpy(v).to(dev) for k, v in p.items()}
+
+    pred, misled = on_card(pred), on_card(misled)
+    P = torch.from_numpy(P).to(dev)
+    jc = torch.from_numpy(labels).to(dev)
+    base = PoseFitConfig(n_parts=K, joint_types=("revolute", "revolute"))
+    draws = PoseDraws.sample(ORACLE_FRAMES, base,
+                             torch.Generator(device=dev).manual_seed(0), dev)
+    fits = {}
+    for name, knob, frame_pred, within in (
+            ("use_gt_association=True", dict(use_gt_association=True),
+             misled, True),
+            ("head association", {}, misled, False),
+            ("axis_agg=mean", dict(axis_agg="mean"), pred, True),
+            ("batch_joints=True", dict(batch_joints=True), pred, True),
+            ("hypo_estimator=lm", dict(hypo_estimator="lm"), pred, True),
+            ("loop", {}, pred, True)):
+        cfg = dataclasses.replace(base, **knob)
+        t0 = time.perf_counter()
+        out = fit_frame_batch(frame_pred, P, draws, cfg, joint_cls_gt=jc)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        seconds = time.perf_counter() - t0
+        fits[name] = out
+        rot = rot_err_deg(out["nonlinear_R"], gR)
+        s_rel = np.abs(out["nonlinear_s"] - gs) / gs
+        t_err = np.abs(out["nonlinear_t"] - gt).max(-1)
+        if within and not (rot.max() < 3.0 and s_rel.max() < 0.05
+                           and t_err.max() < 0.05):
+            raise AssertionError(f"[pose knobs] {name}: rot {rot.max()}, "
+                                 f"scale {s_rel.max()}, trans {t_err.max()}")
+        log(f"[pose knobs] {name}"
+            f"{' (misled head)' if frame_pred is misled else ''}: max rot "
+            f"err {rot.max():.4f} deg, scale rel {s_rel.max():.2e}, trans "
+            f"{t_err.max():.2e} ({seconds:.3f} s, B={ORACLE_FRAMES} "
+            f"N={N_POINTS} K={K})")
+    gt_fit, head_fit = fits["use_gt_association=True"], fits["head association"]
+    moved = float(np.abs(gt_fit["nonlinear_R"] - head_fit["nonlinear_R"]).max())
+    if not moved:
+        raise AssertionError("[pose knobs] use_gt_association: the GT labels "
+                             "did not move the fit")
+    log(f"[pose knobs] use_gt_association against the head's association on "
+        f"the misled frames: nonlinear_R moved by {moved:.3f} at most")
+    loop, batched = fits["loop"], fits["batch_joints=True"]
+    devs = {k: float(np.abs(loop[k] - batched[k]).max()) for k in loop}
+    if max(devs.values()) > 1e-5:
+        raise AssertionError(f"[pose knobs] batch_joints against the loop: "
+                             f"{devs}")
+    log(f"[pose knobs] batch_joints=True against the loop, same draws: "
+        f"{'bit for bit' if not max(devs.values()) else devs}")
+
+
+def cli_hdf5(work: pathlib.Path, common):
+    """Phase 12(f): the reference-format path.  With h5py: export_hdf5 ->
+    train --data_root (3 steps) -> test -> eval --from_pred.  Without
+    it: `test --data_root` raises ImportError naming h5py."""
+    from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
+
+    root, h5work = work / "h5data", work / "h5work"
+    data = ["--data_root", str(root), "--work_dir", str(h5work)]
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        try:
+            run_cli("test --data_root", ["test", *common, *data])
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise
+            log(f"[cli hdf5] h5py does not import here: `test --data_root` "
+                f"raises ImportError({str(e)!r}), as it should")
+            return {}
+        raise AssertionError("[cli hdf5] test --data_root ran without h5py")
+    SyntheticArticulated(n_parts=3, points_per_part=400, seed=0).export_hdf5(
+        str(root), "eyeglasses", n_instances=4, frames_per_instance=8)
+    paths = {}
+    _, _, paths["cli train --data_root"] = run_cli(
+        "train --data_root", ["train", *common, *data, "--max_steps", "3"])
+    _, _, paths["cli test --data_root"] = run_cli(
+        "test --data_root", ["test", *common, *data])
+    _, _, paths["cli eval --from_pred"] = run_cli(
+        "eval --from_pred", ["eval", "--from_pred",
+                             str(h5work / "test_pred"), *common,
+                             "--work_dir", str(h5work)])
+    check_report("eval --from_pred", h5work / "eval_from_pred_all.json")
+    return paths
+
+
+def cli_path(dev):
+    """Phase 12: the command line (`python -m articulated_pose_tpu_torch`)
+    in this process through main(argv), on the card.  Returns each
+    sub-path's launch counts."""
+    import tempfile
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        # every command's shape flags; the work dir is each one's own
+        common = ["--item", "eyeglasses", "--batch_size", str(CLI_B),
+                  "--num_points", str(CLI_N), "--synthetic_frames",
+                  str(CLI_FRAMES), "--device", str(dev)]
+        paths.update(cli_demo_eval(work, common))
+        paths.update(cli_serve(work, common, dev))
+        paths.update(cli_joint_baseline(work, common, dev))
+        pose_knobs(dev)
+        paths.update(cli_hdf5(work, common))
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1783,6 +2238,8 @@ def main() -> int:
     with phase("11 synthetic e2e"):
         synthetic_card_vs_cpu(dev)
         paths.update(synthetic_e2e(dev))
+    with phase("12 CLI"):
+        paths.update(cli_path(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -81,10 +81,15 @@ def test_a_misspelt_key_raises_in_both_packages(text, where, tmp_path):
                                        ("nn_name", "ancsh"),
                                        ("mesh_shape", None)])
 def test_jax_only_keys_are_accepted(key, value, tmp_path, no_yaml):
+    """A key of JAX's config is accepted; the port takes its value where
+    it reads the field (thres_r, since the command line reads it) and
+    ignores it elsewhere."""
     path = tmp_path / "cfg.yml"
     path.write_text(f"{key}: {'null' if value is None else value}\n")
-    assert config.load_config(str(path)) == config.NetworkConfig()
-    assert config.load_config(**{key: value}) == config.NetworkConfig()
+    want = (config.NetworkConfig(**{key: value}) if key in SHARED
+            else config.NetworkConfig())
+    assert config.load_config(str(path)) == want
+    assert config.load_config(**{key: value}) == want
 
 
 def test_npcs_preset_is_kept(no_yaml):

@@ -664,8 +664,24 @@ class TestPortTraining:
         for k in a:
             np.testing.assert_allclose(
                 vm[k], (4 * a[k].item() + 2 * b[k].item()) / 6, rtol=1e-6)
-        with pytest.raises(NotImplementedError, match="prediction_io"):
-            tr.validate(data, save_predictions=True)
+        # with save_predictions: the same metrics, and one h5 a frame in
+        # the reference schema that reads back as the eval step's output
+        from articulated_pose_tpu_torch.utils.prediction_io import \
+            load_prediction
+
+        vs = tr.validate(data, save_predictions=True)
+        assert vs == vm
+        out = tmp_path / "val_pred" / "step0"
+        assert sorted(p.name for p in out.iterdir()) == [
+            f"frame_{i}.h5" for i in range(6)]
+        pred, _ = eval_step(tr.state, stack(range(4, 6)))
+        got = load_prediction(str(out / "frame_5.h5"))
+        np.testing.assert_array_equal(got["instance_per_point"],
+                                      pred["W"][1].numpy())
+        np.testing.assert_array_equal(got["nocs_per_point"],
+                                      pred["nocs_per_point"][1].numpy())
+        np.testing.assert_array_equal(got["P"], samples[5]["P"])
+        np.testing.assert_array_equal(got["cls_gt"], samples[5]["cls_gt"])
 
     def test_predictor_serves_the_trainers_checkpoint(self, tmp_path):
         cfg = config.NetworkConfig(backbone_preset="tiny", batch_size=2,
