@@ -8,7 +8,9 @@
 // pick is index 0, every later pick maximises the running minimum
 // squared distance (dx*dx + dy*dy) + dz*dz to the picked set (round to
 // nearest, no contraction), ties go to the lowest index, and level 2
-// runs on the np1 picks, so idx2 holds LOCAL indices.
+// runs on the np1 picks, so idx2 holds LOCAL indices.  A level may pick
+// more points than it has (npoint > N, np2 > np1), as the TPU kernels
+// do: the picks past the last distinct point are index 0.
 //
 // What bounds it on the card: the recurrence is serial in the picks, so
 // a cloud's time is npoint times one step, far above the bytes and
@@ -428,18 +430,31 @@ struct Kept {
   }
 };
 
-// One FPS level: npoint picks over the set's points, the first being
-// point 0 of the level.  The writer warp stores the picks.
+// One FPS level: npoint picks over the level's n points, the first
+// being point 0.  The writer warp stores the picks.  npoint may exceed
+// n: a pick whose running minimum is above 0 is a point neither picked
+// nor a copy of a picked one, so once pick n - 1 has updated the minima
+// every one of them is 0, and each later pick is point 0, the lowest
+// index holding the largest minimum, as the plain version's argmax takes
+// it.  Those picks are written without a step; every CTA of a cluster
+// steps the same min(npoint, n) - 1 times, so none waits for a record
+// that is never pushed.  The steps themselves are as for npoint <= n.
 template <int W, typename Set, typename Load>
-__device__ void run_level(Set& set, const Load& ld, int npoint, int* idx_out,
-                          float* xyz_out, bool writer, const Team<W>& team) {
+__device__ void run_level(Set& set, const Load& ld, int n, int npoint,
+                          int* idx_out, float* xyz_out, bool writer,
+                          const Team<W>& team) {
   float3 l = ld(0);
   Kept kept{idx_out, xyz_out, writer, 0, 0.0f, 0.0f, 0.0f};
   kept.keep(0, npoint - 1, 0, l);
-  for (int j = 1; j < npoint; ++j) {
+  const int steps = min(npoint, n);
+  for (int j = 1; j < steps; ++j) {
     const Pick p = meet<W, Set::kOrdered>(team, j, set.scan(l));
     l = make_float3(p.x, p.y, p.z);
     kept.keep(j, npoint - 1, p.idx, l);
+  }
+  if (steps < npoint) {
+    const float3 first = ld(0);
+    for (int j = steps; j < npoint; ++j) kept.keep(j, npoint - 1, 0, first);
   }
 }
 
@@ -491,11 +506,11 @@ __global__ void __launch_bounds__(W * 32)
   if constexpr (P == 0) {
     StreamSet<Input> set{Input{cloud}, row, begin, end, kThreads};
     set.init();
-    run_level(set, Input{cloud}, np1, i1, x1, writer, team);
+    run_level(set, Input{cloud}, n, np1, i1, x1, writer, team);
   } else {
     RegSet<P> set;
     set.load(Input{cloud}, begin, end, kThreads);
-    run_level(set, Input{cloud}, np1, i1, x1, writer, team);
+    run_level(set, Input{cloud}, n, np1, i1, x1, writer, team);
   }
   // every record pushed to this CTA has arrived (it waited for each
   // step's), so a CTA other than 0 may exit
@@ -523,11 +538,11 @@ __global__ void __launch_bounds__(W * 32)
   if (regs) {
     RegSet<P2> set;
     set.load(Written{x1}, 0, np1, warps * 32);
-    run_level(set, Written{x1}, np2, i2, x2, warp == 0, team2);
+    run_level(set, Written{x1}, np1, np2, i2, x2, warp == 0, team2);
   } else {
     StreamSet<Written> set{Written{x1}, row + n, 0, np1, kThreads};
     set.init();
-    run_level(set, Written{x1}, np2, i2, x2, warp == 0, team2);
+    run_level(set, Written{x1}, np1, np2, i2, x2, warp == 0, team2);
   }
 }
 

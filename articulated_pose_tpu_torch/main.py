@@ -464,7 +464,9 @@ def cmd_serve(args):
     serving.serve_clouds, which pads a short last batch with copies of
     its last cloud and trims the answers.  Input: --input .npy/.npz of
     (B, N, 3) clouds (npz key 'P'), or --synthetic frames.  Output: .npz
-    with R/s/t, segmentation, part_counts.
+    with R/s/t, segmentation, part_counts.  --mesh 'data=8' serves data-
+    parallel over the devices (parallel/mesh.py): every visible card, or
+    with --device cpu that many copies of the CPU.
     """
     from articulated_pose_tpu_torch.serving import PosePredictor, serve_clouds
 
@@ -484,11 +486,16 @@ def cmd_serve(args):
         sys.exit(f"serve: expected (B, N, 3) clouds, got {clouds.shape}")
     if len(clouds) == 0:
         sys.exit("serve: input contains no clouds")
+    mesh = None
     if args.mesh:
-        raise NotImplementedError(
-            "serve --mesh: data-parallel serving over several cards is not "
-            "ported yet (ROADMAP A.3, parallel/mesh.py)")
-    pred = PosePredictor(cfg, work_dir=work, device=args.device)
+        from articulated_pose_tpu_torch.parallel.mesh import (make_mesh,
+                                                              parse_spec)
+
+        devices = None
+        if torch.device(args.device).type == "cpu":
+            devices = ["cpu"] * int(np.prod(parse_spec(args.mesh)[1]))
+        mesh = make_mesh(args.mesh, devices=devices)
+    pred = PosePredictor(cfg, work_dir=work, device=args.device, mesh=mesh)
     merged = serve_clouds(pred, clouds, cfg.batch_size)
     out_path = args.output or os.path.join(work, "poses.npz")
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
@@ -567,7 +574,8 @@ def parse_args(argv=None):
                     help="serve: output .npz path (default <work>/poses.npz)")
     ap.add_argument("--mesh", default=None,
                     help="serve: data-parallel mesh spec, e.g. 'data=8' "
-                         "(not ported yet: raises NotImplementedError)")
+                         "(parallel/mesh.py::make_mesh; over every visible "
+                         "card, or copies of the CPU with --device cpu)")
     ap.add_argument("--model", default="ancsh",
                     choices=["ancsh", "joint_baseline"],
                     help="joint_baseline = direct joint-parameter "

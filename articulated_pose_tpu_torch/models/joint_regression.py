@@ -15,8 +15,9 @@ Module names follow the Flax tree (backbone.sa1.mlp.conv0.dense, ...,
 fc3_<i>), so `convert.joint_regression_state_dict_from_flax` maps one
 onto the other by name.  The two sampled SA stages group through
 `pointnet2.sample_and_group`, so on the card they launch the
-single-level FPS kernel (`fps`, which needs npoint <= N there) and the
-exact ball query (`ball_query_group`); on the CPU their plain versions.
+single-level FPS kernel (`fps`, which also takes npoint > N, picking
+point 0 once every point is taken) and the exact ball query
+(`ball_query_group`); on the CPU their plain versions.
 """
 
 from __future__ import annotations

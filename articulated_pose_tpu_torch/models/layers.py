@@ -7,7 +7,10 @@ says otherwise, of what the layer emits (the mixed-precision policy of
 layers.py:75-123).  In training mode (`module.train()`) batch norm
 normalises with the batch's statistics and moves its running ones by a
 momentum given at run time; `dropout` is Flax's, its mask drawn from a
-given torch.Generator.
+given torch.Generator.  Under a sharded train step
+(`parallel/mesh.py::shard_train_setup`) batch norm reduces its
+statistics over the 'data' ranks and a layer marked by `state_shardings`
+computes its block of output features on the 'model' axis.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from articulated_pose_tpu_torch.parallel.collectives import global_var_mean
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -46,7 +51,9 @@ class ScheduledBatchNorm(nn.Module):
     variance too).  `momentum` m is a float or a 0-d tensor, so a
     schedule on the device costs no host sync.  `F.batch_norm` is not
     used: it moves the running variance by the unbiased one, and its
-    momentum is 1 - m."""
+    momentum is 1 - m.  With `data_group` set (a process group of the
+    ranks that split the batch), the statistics are the global batch's,
+    as under GSPMD, and their gradient reaches every rank's rows."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-3):
@@ -57,12 +64,16 @@ class ScheduledBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.data_group = None
 
     def forward(self, x: torch.Tensor, momentum=0.9) -> torch.Tensor:
         x32 = x.float()
         if self.training:
-            var, mean = torch.var_mean(x32, dim=tuple(range(x.dim() - 1)),
-                                       correction=0)
+            dims = tuple(range(x.dim() - 1))
+            if self.data_group is None:
+                var, mean = torch.var_mean(x32, dim=dims, correction=0)
+            else:
+                var, mean = global_var_mean(x32, dims, self.data_group)
             with torch.no_grad():
                 m = momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -79,7 +90,9 @@ class ScheduledBatchNorm(nn.Module):
 class PointConv(nn.Module):
     """Pointwise Linear (+ batch norm) (+ ReLU), computed in `dtype`; the
     batch norm emits `out_dtype` (None = dtype), or without one the
-    output is cast to it (layers.py:75-98)."""
+    output is cast to it (layers.py:75-98).  With `columns` set (a
+    `ColumnShard`), `dense.weight` holds this rank's block of output
+    features and the Linear's output is assembled to full width."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = True,
                  relu: bool = True, dtype: torch.dtype = torch.float32,
@@ -91,11 +104,12 @@ class PointConv(nn.Module):
         self.dense = nn.Linear(in_features, features)
         self.bn = (ScheduledBatchNorm(features, self.out_dtype) if use_bn
                    else None)
+        self.columns = None
 
     def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         dt = self.dtype
-        y = F.linear(x.to(dt), self.dense.weight.to(dt),
-                     self.dense.bias.to(dt))
+        linear = F.linear if self.columns is None else self.columns.linear
+        y = linear(x.to(dt), self.dense.weight.to(dt), self.dense.bias.to(dt))
         y = (self.bn(y, bn_momentum) if self.bn is not None
              else y.to(self.out_dtype))
         return F.relu(y) if self.relu else y

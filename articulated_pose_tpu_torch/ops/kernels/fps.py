@@ -101,11 +101,12 @@ def _fewest_ctas(N: int, points: int) -> int:
 
 def fps_plan(B: int, N: int, np1: int) -> Tuple[str, int]:
     """(variant, cluster) of the launch for B clouds of N points whose
-    first level picks np1, by the rule above.  Needs no library, so the
-    CPU tests reach it."""
-    if B < 1 or not 1 <= np1 <= N:
-        raise ValueError(f"fps_plan: need B > 0 and 1 <= np1 <= N, got B={B},"
-                         f" N={N}, np1={np1}")
+    first level picks np1 (any number: the picks past the N-th take no
+    step), by the rule above.  Needs no library, so the CPU tests reach
+    it."""
+    if B < 1 or N < 1 or np1 < 1:
+        raise ValueError(f"fps_plan: need B, N and np1 > 0, got B={B}, "
+                         f"N={N}, np1={np1}")
     if N <= WARP_POINTS:
         return ("w1p4" if N <= capacity("w1p4") else "w1p16"), 1
     if N <= CTA_POINTS:
@@ -131,9 +132,9 @@ def launch(kernel: CudaKernel, xyz: torch.Tensor, np1: int, np2: int,
     A refused launch raises with the card's error text."""
     require_cuda("fps", xyz)
     B, N, _ = xyz.shape
-    if B == 0 or not (1 <= np1 <= N and 0 <= np2 <= np1):
-        raise ValueError(f"fps: need B > 0, 1 <= np1 <= N and 0 <= np2 <= "
-                         f"np1, got B={B}, N={N}, np1={np1}, np2={np2}")
+    if B == 0 or N == 0 or np1 < 1 or np2 < 0:
+        raise ValueError(f"fps: need B, N, np1 > 0 and np2 >= 0, got B={B}, "
+                         f"N={N}, np1={np1}, np2={np2}")
     if variant not in VARIANTS or cluster not in CLUSTERS:
         raise ValueError(f"fps: unknown variant {variant!r} or cluster "
                          f"{cluster}")
@@ -182,26 +183,29 @@ def step_floor(B: int, variant: str, cluster: int, seed: int = 1) -> float:
 
 def fps2(xyz: torch.Tensor, np1: int, np2: int):
     """xyz (B, N, 3) f32 -> (idx1 (B, np1) i32, xyz1 (B, np1, 3),
-    idx2 (B, np2) i32 LOCAL to the np1 subset, xyz2 (B, np2, 3))."""
+    idx2 (B, np2) i32 LOCAL to the np1 subset, xyz2 (B, np2, 3)).  np1
+    may exceed N, and np2 np1: a level's picks past its point count are
+    index 0, as the TPU kernel's are."""
     if xyz.device.type == "cpu":
         return fps2_plain(xyz, np1, np2)
     require_cuda("fps2", xyz)
     B, N, _ = xyz.shape
-    if not 1 <= np2 <= np1 <= N or B == 0:
-        raise ValueError(f"fps2: need 1 <= np2 <= np1 <= N and B > 0, got "
-                         f"B={B}, N={N}, np1={np1}, np2={np2}")
+    if B == 0 or N == 0 or np1 < 1 or np2 < 1:
+        raise ValueError(f"fps2: need B, N, np1 and np2 > 0, got B={B}, "
+                         f"N={N}, np1={np1}, np2={np2}")
     return launch(KERNEL, xyz, np1, np2, *fps_plan(B, N, np1))
 
 
 def fps(xyz: torch.Tensor, npoint: int):
-    """xyz (B, N, 3) f32 -> (idx (B, npoint) i32, new_xyz (B, npoint, 3))."""
+    """xyz (B, N, 3) f32 -> (idx (B, npoint) i32, new_xyz (B, npoint, 3));
+    npoint may exceed N (see `fps2`)."""
     if xyz.device.type == "cpu":
         return fps_plain(xyz, npoint)
     require_cuda("fps", xyz)
     B, N, _ = xyz.shape
-    if not 1 <= npoint <= N or B == 0:
-        raise ValueError(f"fps: need 1 <= npoint <= N and B > 0, got B={B}, "
-                         f"N={N}, npoint={npoint}")
+    if B == 0 or N == 0 or npoint < 1:
+        raise ValueError(f"fps: need B, N and npoint > 0, got B={B}, N={N}, "
+                         f"npoint={npoint}")
     idx, new_xyz, _, _ = launch(SINGLE_KERNEL, xyz, npoint, 0,
                                 *fps_plan(B, N, npoint))
     return idx, new_xyz

@@ -1,12 +1,15 @@
 """Serving API: clouds in, part poses out.  Counterpart of
 `articulated_pose_tpu/serving.py` and of `main.py::cmd_serve`'s batch loop.
 
-`PosePredictor` holds the model on one device and runs the forward and
-the pose fit for a batch of clouds; `serve_clouds` pads a stream of
-clouds to the predictor's batch and trims the answers.  The RANSAC draws
-come from a torch.Generator on the device, reseeded from `config.seed`
-on every call, so the same cloud always gets the same poses (the JAX
-server likewise reuses one key for every call).
+`PosePredictor` holds the model on one device, or with a mesh on each
+device of its 'data' axis, and runs the forward and the pose fit for a
+batch of clouds; `serve_clouds` pads a stream of clouds to the
+predictor's batch and trims the answers.  The RANSAC draws come from a
+torch.Generator on the device, reseeded from `config.seed` on every
+call, so the same cloud always gets the same poses (the JAX server
+likewise reuses one key for every call); a mesh's shard i draws from
+its own, reseeded from (`config.seed`, i), shard 0 as the unsharded
+predictor does.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ import torch
 
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.models.ancsh import build_model
+from articulated_pose_tpu_torch.parallel.mesh import (Mesh, make_mesh,
+                                                      shard_serving_setup)
 from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws, PoseFitConfig,
                                                       fit_frame_batch)
+from articulated_pose_tpu_torch.train.state import shard_seed
 from articulated_pose_tpu_torch.train.trainer import (checkpoint_path,
                                                       checkpoint_steps)
 
@@ -55,6 +61,15 @@ class PosePredictor:
     none.
     It serves on the card unless `device` names another one; without a
     card the default raises rather than serving on the CPU.
+
+    With `mesh` (`parallel.mesh.make_mesh`), whose devices replace
+    `device`, each call splits the batch over the mesh's 'data' axis and
+    runs the forward and the fit of each shard on that shard's device,
+    with that shard's draws (`draws(b, shard)`), then gathers the answers
+    in shard order (`parallel/mesh.py::shard_serving_setup`).  A batch
+    that does not divide raises JAX's ValueError.  Without one it serves
+    through a mesh of one shard on `device`: the unsharded predictor is
+    that mesh.
     """
 
     def __init__(self, config: NetworkConfig,
@@ -62,15 +77,22 @@ class PosePredictor:
                  ckpt_path: Optional[str] = None,
                  pose_cfg: Optional[PoseFitConfig] = None,
                  use_nonlinear: bool = True, device="cuda",
-                 work_dir: Optional[str] = None):
+                 work_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         if sum(x is not None for x in (state_dict, ckpt_path, work_dir)) != 1:
             raise ValueError("PosePredictor needs exactly one of state_dict, "
                              "ckpt_path and work_dir")
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
+        devices = list(mesh.devices.flat) if mesh is not None else [device]
+        if (any(d.type == "cuda" for d in devices)
+                and not torch.cuda.is_available()):
             raise RuntimeError(f"PosePredictor: device {device} is not "
                                "available; pass device='cpu' to serve on "
                                "the CPU")
+        if mesh is None:
+            if device.type == "cuda" and device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            mesh = make_mesh("data=1", devices=[device])
         if work_dir is not None:
             model_dir = os.path.join(work_dir, "model")
             steps = checkpoint_steps(model_dir)
@@ -84,7 +106,7 @@ class PosePredictor:
             state_dict = torch.load(ckpt_path, map_location="cpu",
                                     weights_only=True)
         self.config = config
-        self.device = device
+        self.device = mesh.devices.flat[0]
         self.model = build_model(config, device=self.device)
         self.model.load_state_dict(state_dict)
         spec = config.category_spec
@@ -95,31 +117,62 @@ class PosePredictor:
             inlier_th=config.ransac_inlier_th,
             joint_types=tuple(spec.joint_types))
         self.use_nonlinear = use_nonlinear and config.pred_joint
-        self._generator = torch.Generator(device=self.device)
+        self.mesh = mesh
+        self._run, _, self.batch_sharding = shard_serving_setup(
+            self._forward_fit, self.model, mesh)
+        self._generators = [torch.Generator(device=d)
+                            for d in self.batch_sharding.devices]
 
-    def draws(self, batch: int) -> PoseDraws:
-        """The RANSAC draws of one call: the same for every call."""
-        self._generator.manual_seed(self.config.seed)
-        return PoseDraws.sample(batch, self.pose_cfg, self._generator,
-                                self.device)
+    def draws(self, batch: int, shard: int = 0) -> PoseDraws:
+        """The RANSAC draws of one call (of data shard `shard`'s rows):
+        the same for every call."""
+        g = self._generators[shard]
+        g.manual_seed(shard_seed(self.config.seed, shard))
+        return PoseDraws.sample(batch, self.pose_cfg, g, g.device)
 
-    @torch.no_grad()
-    def __call__(self, clouds, draws: Optional[PoseDraws] = None
-                 ) -> PoseResult:
-        P = torch.as_tensor(np.asarray(clouds, np.float32), device=self.device)
-        pred = self.model(P)
-        draws = draws if draws is not None else self.draws(P.shape[0])
+    def _forward_fit(self, model, P: torch.Tensor, shard: int,
+                     draws: Optional[PoseDraws]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The forward and the fit of one batch (or shard) on P's device,
+        queued: the outputs stay there."""
+        pred = model(P)
+        draws = draws if draws is not None else self.draws(P.shape[0], shard)
         fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
                                P, draws, self.pose_cfg)
+        return {"pred": pred, "fits": fits}
+
+    def _result(self, parts) -> PoseResult:
+        """The host PoseResult of one or more `_forward_fit` outputs, in
+        order along the batch."""
+        fits = [p["fits"] for p in parts]
         prefix = "nonlinear" if (self.use_nonlinear
-                                 and "nonlinear_R" in fits) else "baseline"
-        host = {k: v.cpu().numpy() for k, v in fits.items()}
+                                 and "nonlinear_R" in fits[0]) else "baseline"
+
+        def host(ts):
+            return np.concatenate([t.cpu().numpy() for t in ts])
+
         return PoseResult(
-            R=host[f"{prefix}_R"], scale=host[f"{prefix}_s"],
-            t=host[f"{prefix}_t"],
-            segmentation=pred["W"].argmax(dim=-1).cpu().numpy(),
-            part_counts=host["part_counts"],
-            raw={k: v.cpu().numpy() for k, v in pred.items()})
+            R=host([f[f"{prefix}_R"] for f in fits]),
+            scale=host([f[f"{prefix}_s"] for f in fits]),
+            t=host([f[f"{prefix}_t"] for f in fits]),
+            segmentation=host([p["pred"]["W"].argmax(dim=-1) for p in parts]),
+            part_counts=host([f["part_counts"] for f in fits]),
+            raw={k: host([p["pred"][k] for p in parts])
+                 for k in parts[0]["pred"]})
+
+    @torch.no_grad()
+    def __call__(self, clouds, draws=None) -> PoseResult:
+        """Poses of a (B, N, 3) batch.  `draws` replaces the predictor's
+        own: a PoseDraws on a mesh of one shard, or a sequence of one per
+        shard."""
+        if isinstance(draws, PoseDraws):
+            draws = [draws]
+        if draws is not None and len(draws) != self.batch_sharding.shards:
+            raise ValueError(
+                f"a PosePredictor over {self.batch_sharding.shards} data "
+                f"shards draws each shard's own RANSAC draws: pass one "
+                f"PoseDraws per shard, not {len(draws)}")
+        return self._result(self._run(clouds, draws))
 
 
 def serve_clouds(predictor: PosePredictor, clouds: np.ndarray,

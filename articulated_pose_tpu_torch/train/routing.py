@@ -5,10 +5,13 @@ Two runs of one step (on the card and on the CPU, or in this package and
 in the JAX one) differ in their forwards by rounding, about 1e-6
 relative.  Where a ReLU input, or a near-tie of a set-abstraction max,
 lies that close, the two runs route the other way, and a max routes a
-whole output's gradient.  So:
+whole output's gradient.  The L2 loss's heatmap term is |h - h_gt| a
+point, and where that residual lies within rounding of 0 its sign, and
+so the point's whole gradient, is such a choice too.  So:
 
-- `capture_routing` records where each ReLU passes and which of its S
-  inputs reach each max;
+- `capture_routing` records where each ReLU passes, which of its S
+  inputs reach each max and, given the heatmap's target, where the
+  heatmap's residual is positive;
 - `count_flips` counts the choices two records disagree on;
 - `impose_routing` makes a model take a record's choices, so that two
   runs' gradients can be held to a bound of rounding size;
@@ -18,7 +21,7 @@ whole output's gradient.  So:
 
 from __future__ import annotations
 
-from typing import Dict, List, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import torch
 from torch import nn
@@ -26,12 +29,23 @@ from torch import nn
 from ..models.layers import PointConv
 from ..models.pointnet2 import SetAbstraction
 
+# the record's entry for the heatmap's residual signs (B, N): True where
+# h > h_gt
+HEATMAP = "joint_net.heatmap"
 
-def capture_routing(model: nn.Module, record: Dict[str, torch.Tensor]):
+
+def _heatmap(out) -> torch.Tensor:
+    """The (B, N) heatmap of a joint head's outputs."""
+    return out[2][..., 0]
+
+
+def capture_routing(model: nn.Module, record: Dict[str, torch.Tensor],
+                    heatmap_gt: Optional[torch.Tensor] = None):
     """Forward hooks recording into `record` each ReLU's mask (by its
-    PointConv's name) and each set-abstraction max's selection, the
-    inputs equal to the max (by the SetAbstraction's name).  Returns the
-    hook handles."""
+    PointConv's name), each set-abstraction max's selection, the inputs
+    equal to the max (by the SetAbstraction's name) and, with the
+    heatmap's target (B, N) on the model's device, where the heatmap
+    exceeds it (`HEATMAP`).  Returns the hook handles."""
     hooks = []
 
     def keep(name, choose):
@@ -45,18 +59,35 @@ def capture_routing(model: nn.Module, record: Dict[str, torch.Tensor]):
             hooks.append(mod.mlp.register_forward_hook(keep(
                 name,
                 lambda out: (out == out.amax(2, keepdim=True)).detach())))
+    if heatmap_gt is not None:
+        hooks.append(model.joint_net.register_forward_hook(keep(
+            HEATMAP, lambda out: (_heatmap(out) > heatmap_gt).detach())))
     return hooks
 
 
-def impose_routing(model: nn.Module, record: Dict[str, object]):
+def impose_routing(model: nn.Module, record: Dict[str, object],
+                   heatmap_gt: Optional[torch.Tensor] = None):
     """Forward hooks that make the model take `record`'s choices (masks
     and selections as `capture_routing` records them, tensors or numpy
     arrays; a layer the record does not name keeps its own, and an entry
     for a layer without a ReLU is ignored): each ReLU emits its
     batch-norm output times the recorded mask, each max the mean of its
-    recorded inputs (amax's gradient split among ties).  Returns the
+    recorded inputs (amax's gradient split among ties).  With the
+    heatmap's target and a `HEATMAP` entry, the heatmap moves, by a
+    constant, to the other side of its target where its residual's sign
+    differs from the record's: there r = h - h_gt becomes -r, so |r|'s
+    value stays and its gradient takes the recorded sign.  Returns the
     hook handles."""
     inner, hooks = {}, []
+    if heatmap_gt is not None and HEATMAP in record:
+        above = torch.as_tensor(record[HEATMAP]).to(heatmap_gt.device)
+
+        def signed(m, i, out):
+            r = _heatmap(out) - heatmap_gt
+            shift = (torch.where(above, r.abs(), -r.abs()) - r).detach()
+            return (*out[:2], out[2] + shift[..., None], *out[3:])
+
+        hooks.append(model.joint_net.register_forward_hook(signed))
 
     def stash(name):
         return lambda m, i, out: inner.__setitem__(name, out)

@@ -65,10 +65,12 @@ class Adam:
 
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
-              grads: Sequence[torch.Tensor], state: AdamState
-              ) -> torch.Tensor:
+              grads: Sequence[torch.Tensor], state: AdamState,
+              finite: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Update `params` and `state` in place from `grads`; returns the
-        device flag of whether every gradient was finite.
+        device flag of whether every gradient was finite.  A sharded step
+        passes `finite`, the flag over every rank's gradients, so that all
+        ranks accept or skip the update together.
 
         The guard is arithmetic, so the host never waits on the flag: a
         rejected step zeroes the gradients and runs with the moment
@@ -76,7 +78,8 @@ class Adam:
         and the parameters bit for bit as they were.
         """
         flat = torch.cat([g.reshape(-1) for g in grads])
-        finite = torch.isfinite(flat).all()
+        if finite is None:
+            finite = torch.isfinite(flat).all()
         flat = torch.where(finite, flat, 0.0)
         g = [x.view_as(p) for x, p in
              zip(flat.split([p.numel() for p in params]), params)]
@@ -152,13 +155,27 @@ class TrainState:
         return self
 
 
-def dropout_generator(generator: torch.Generator, seed: int, step: int
-                      ) -> torch.Generator:
+# an odd 64-bit constant (2^64 over the golden ratio): multiples of it
+# differ in their low 32 bits as well, which is all a CPU generator keeps
+_SHARD_MIX = 0x9E3779B97F4A7C15
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The seed of data shard `shard` of a sharded call from the
+    unsharded call's `seed`: `seed` itself for shard 0, and apart from it
+    in the low 32 bits (a CPU generator's) and in all 64 (a card's)."""
+    return seed ^ ((shard * _SHARD_MIX) & 0xFFFF_FFFF_FFFF_FFFF)
+
+
+def dropout_generator(generator: torch.Generator, seed: int, step: int,
+                      shard: int = 0) -> torch.Generator:
     """Reseed `generator` for the dropout masks of train step `step`:
     the masks are a function of (seed, step), as `fold_in(rng, step)`
     makes JAX's (state.py:107), so a resumed run draws what an
-    uninterrupted one would.  A host-side reseed: no sync."""
-    return generator.manual_seed((seed << 32) + step)
+    uninterrupted one would; and of the data shard of a sharded step,
+    whose shard 0 draws the unsharded step's masks.  A host-side reseed:
+    no sync."""
+    return generator.manual_seed(shard_seed((seed << 32) + step, shard))
 
 
 def gt_from_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -121,9 +121,45 @@ is non-zero):
    (f) with h5py: export_hdf5 -> `train --data_root` (3 steps) -> `test`
    -> `eval --from_pred`; without it: `test --data_root` raises
    ImportError naming h5py.
+13. The device mesh (`parallel/mesh.py`): (a) phase 4's f32 serve
+   (reference widths, B=16, N=2048) through a data=1 mesh, equal to the
+   unsharded predictor; (b) through data=2 on [cuda:0, cuda:0], and the
+   packed bf16 serve at B=64 likewise: each shard equal to the
+   unsharded predictor on its rows with its draws, launches 2x a batch's,
+   clouds/s sharded and not; (c) `serve --mesh data=1` through
+   main(argv) equal to plain `serve`, and `--mesh data=2` raising JAX's
+   ValueError on a one-card host; (d) the sharded train step at the
+   reference widths (cfg/network_config.yml: eyeglasses, the L2
+   coordinate loss; f32, N=1024, B=16, dropout off), three steps, over
+   gloo with every rank on cuda:0: world 2 (data=2) and world 4
+   (data=2,model=2).  Each step is held against the single-process step
+   on the card from the world's own state before it, with the world's
+   routing imposed (its ReLU and max-pool choices and the signs of the
+   heatmap's residuals, `train/routing.py`): the loss within rtol 1e-5,
+   the grad norm rtol 1e-4, the batch statistics 1e-4 of their largest
+   entry, each gradient 1e-4 of its leaf's largest
+   (`parallel/launch.py::BOUNDS`); the choices the single process makes
+   otherwise are counted.  Each rank's device, the card's compute mode
+   (one that forbids a second context fails the phase), the ranks'
+   launches and ms a step are printed;
+   (e) R6: `fps` and `fps2` with more picks than points (N 1, 100, 511;
+   512 and 512 -> 128) equal to their plain versions, and the joint
+   baseline's train step at N=256 (its SA1 picks 512).
+   Every kernel call of (b), (c), (d) and (e)'s paths is also made once,
+   outside the counted runs, on the same inputs with each kernel held
+   against its plain version (`held_to_plain`): the shards' shapes (B=8
+   and B=32 at N=2048, B=8 at N=1024) and the joint baseline's at N=256
+   are no other phase's.
+
+    python3 chip_smoke.py --soak WORLDS STEPS
+
+builds the kernels and runs only phase 13(d), WORLDS worlds of each
+mesh of STEPS steps each, every step held as above; it prints each
+world and, for a step where the heatmap's signs differed, the same step
+held without them imposed.
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-12 runs with the launch counts set to 0 just before it and read
+phases 4-13 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -194,6 +230,13 @@ CLI_SERVE_CLOUDS = 40
 CLI_REPORT_KEYS = {"per_part", "overall", "per_joint", "n_frames",
                    "n_dropped"}
 JB_RATE_STEPS = 20
+# phase 13: the sharded train step's worlds and steps, and the joint
+# baseline below its SA1's 512 picks
+MESH_WORLDS = ("data=2", "data=2,model=2")
+MESH_TRAIN_STEPS = 3
+R6_N = (1, 100, 511)
+R6_JB_N = 256
+R6_JB_STEPS = 3
 # phase 10(b), the card's step on its own routing against the CPU's: the
 # share of ReLU and max-pool choices allowed to differ, and the gradient
 # bound a leaf, relative to its scale (the largest measured is 3.4e-2)
@@ -2167,6 +2210,465 @@ def cli_path(dev):
     return paths
 
 
+# --------------------------------------------------------------- phase 13
+# the models' kernels (models/pointnet2.py's names) and their plain
+# versions, as phase 13's paths call them
+HELD_KERNELS = ("fps", "fps2", "ball_query_group", "ball_query_group_packed",
+                "three_nn")
+
+
+@contextlib.contextmanager
+def held_to_plain(label: str):
+    """Within the block, each call the models make of a kernel of
+    HELD_KERNELS also runs the kernel's plain version on the same inputs
+    and raises unless they agree: 3-NN's indices equal and its distances
+    within 1e-6 relative (phase 2's bound), every other output equal.
+    Yields {kernel: the shapes held}.  Launches made in the block belong
+    to no path: run it outside a path's counted run."""
+    import torch
+
+    from articulated_pose_tpu_torch.models import pointnet2
+    from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
+                                                        three_nn)
+
+    plain = {"fps": fps.fps_plain, "fps2": fps.fps2_plain,
+             "ball_query_group": ball_query.ball_query_group_plain,
+             "ball_query_group_packed":
+                 ball_query.ball_query_group_packed_plain,
+             "three_nn": three_nn.three_nn_plain}
+    held = {}
+
+    def checked(name, kernel):
+        def call(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            want = plain[name](*args, **kwargs)
+            shape = " ".join(
+                "x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
+                for a in args)
+            if name == "three_nn":
+                check_equal(f"[{label}] three_nn {shape} indices", got[1:],
+                            want[1:])
+                rel = ((got[0] - want[0]).abs()
+                       / want[0].abs().clamp_min(1e-30)).max().item()
+                if rel > 1e-6:
+                    raise AssertionError(f"[{label}] three_nn {shape}: "
+                                         f"distances off by {rel} relative")
+            else:
+                check_equal(f"[{label}] {name} {shape}",
+                            [t for t in got if t is not None],
+                            [t for t in want if t is not None])
+            held.setdefault(name, set()).add(shape)
+            return got
+        return call
+
+    kept = {name: getattr(pointnet2, name) for name in HELD_KERNELS}
+    for name, fn in kept.items():
+        setattr(pointnet2, name, checked(name, fn))
+    try:
+        yield held
+    finally:
+        for name, fn in kept.items():
+            setattr(pointnet2, name, fn)
+
+
+def log_held(label: str, held, counts) -> None:
+    """Print what `held_to_plain` held; raise unless it held every kernel
+    that the path's counted run (`counts`) launched."""
+    missed = sorted(k for k, n in counts.items() if n and k not in held)
+    if missed:
+        raise AssertionError(f"[{label}] {missed} launched on the path but "
+                             "never held against the plain version")
+    log(f"[{label}] each kernel call held against its plain version on the "
+        f"same inputs (3-NN distances within 1e-6 relative, all else "
+        f"equal): " + "; ".join(f"{k} at {sorted(v)}"
+                                for k, v in sorted(held.items())))
+
+
+def equal_results(label: str, got, want) -> None:
+    """Raise unless two PoseResults are equal, field by field."""
+    for f in ("R", "scale", "t", "segmentation", "part_counts"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"[{label}] {f} differs")
+    for k in want.raw:
+        if not np.array_equal(got.raw[k], want.raw[k]):
+            raise AssertionError(f"[{label}] raw {k} differs")
+
+
+def sharded_serve(label, cfg, state, clouds, dev, per_batch):
+    """Phase 13(a, b) for one configuration: a data=1 mesh against the
+    unsharded predictor, then data=2 on [dev, dev], each shard against
+    the unsharded predictor on its rows with its draws; three calls of
+    each, timed.  Returns the data=2 path's launch counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.parallel.mesh import make_mesh
+    from articulated_pose_tpu_torch.serving import PosePredictor
+
+    plain = PosePredictor(cfg, state_dict=state, device=dev)
+    one = PosePredictor(cfg, state_dict=state,
+                        mesh=make_mesh("data=1", devices=[dev]))
+    equal_results(f"{label} data=1", one(clouds), plain(clouds))
+    two = PosePredictor(cfg, state_dict=state,
+                        mesh=make_mesh("data=2", devices=[dev, dev]))
+    with held_to_plain(f"mesh {label} data=2") as held:
+        two(clouds)
+    reset_launch_counts()
+    got = two(clouds)
+    counts = launch_counts()
+    log_held(f"mesh {label} data=2", held, counts)
+    want = expected_launches(**{k: 2 * v for k, v in per_batch.items()})
+    if counts != want:
+        raise AssertionError(f"[{label} data=2] launches {counts}, expected "
+                             f"{want}")
+    half = len(clouds) // 2
+    for shard in range(2):
+        rows = slice(shard * half, (shard + 1) * half)
+        want_shard = plain(clouds[rows], draws=two.draws(half, shard))
+        part = type(got)(**{f: getattr(got, f)[rows] for f in (
+            "R", "scale", "t", "segmentation", "part_counts")},
+            raw={k: v[rows] for k, v in got.raw.items()})
+        equal_results(f"{label} data=2 shard {shard}", part, want_shard)
+    rates = {}
+    for name, pred in (("unsharded", plain), ("data=2", two)):
+        pred(clouds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pred(clouds)
+        rates[name] = 3 * len(clouds) / (time.perf_counter() - t0)
+    log(f"[mesh {label}] B={len(clouds)}: data=1 equal to the unsharded "
+        f"predictor; data=2 on [{dev}, {dev}]: each shard of {half} equal "
+        f"to the unsharded predictor on its rows with its draws; "
+        f"{rates['data=2']:.1f} clouds/s sharded, {rates['unsharded']:.1f} "
+        f"unsharded (host clock, 3 calls each after one); launches {counts}")
+    return counts
+
+
+def mesh_cli(dev):
+    """Phase 13(c): serve --mesh data=1 through main(argv) equal to plain
+    serve on one checkpoint; --mesh data=2 raises JAX's ValueError when
+    the host has one card."""
+    import tempfile
+
+    import torch
+
+    from articulated_pose_tpu_torch import main as cli
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.train.state import TrainState
+    from articulated_pose_tpu_torch.train.trainer import Checkpointer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        common = ["--item", "eyeglasses", "--batch_size", str(CLI_B),
+                  "--num_points", str(CLI_N), "--device", str(dev),
+                  "--work_dir", str(work)]
+        cfg, _ = cli.build_config(cli.parse_args(["serve", *common]))
+        model = build_model(cfg, torch.Generator().manual_seed(3))
+        Checkpointer(str(work / "model")).save(0, TrainState(model, cfg))
+        clouds = stack(train_frames(cfg, CLI_SERVE_CLOUDS, seed=8))["P"]
+        np.save(work / "clouds.npy", clouds)
+        with held_to_plain("mesh cli serve --mesh data=1") as held:
+            run_cli("serve --mesh data=1, kernels held", [
+                "serve", *common, "--input", str(work / "clouds.npy"),
+                "--output", str(work / "held.npz"), "--mesh", "data=1"])
+        outs, paths = {}, {}
+        for label, extra in (("serve", []), ("serve --mesh data=1",
+                                             ["--mesh", "data=1"])):
+            out_npz = work / f"{len(outs)}.npz"
+            out, seconds, counts = run_cli(label, [
+                "serve", *common, "--input", str(work / "clouds.npy"),
+                "--output", str(out_npz), *extra])
+            batches = -(-CLI_SERVE_CLOUDS // CLI_B)
+            check_launches(label, counts, fps2=batches,
+                           ball_query_group=2 * batches, three_nn=2 * batches)
+            outs[label] = dict(np.load(out_npz))
+            paths[f"mesh cli {label}"] = counts
+        log_held("mesh cli serve --mesh data=1", held,
+                 paths["mesh cli serve --mesh data=1"])
+        last = out.strip().splitlines()[-1]
+        if "mesh=data=1" not in last:
+            raise AssertionError(f"[cli serve --mesh] last line {last!r}")
+        a, b = outs["serve"], outs["serve --mesh data=1"]
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in a):
+            raise AssertionError("serve --mesh data=1 differs from serve")
+        cards = torch.cuda.device_count()
+        if cards == 1:
+            want = "mesh spec 'data=2' needs 2 devices, have 1"
+            try:
+                run_cli("serve --mesh data=2", [
+                    "serve", *common, "--input", str(work / "clouds.npy"),
+                    "--mesh", "data=2"])
+            except ValueError as e:
+                if str(e) != want:
+                    raise AssertionError(f"serve --mesh data=2: {e!r}, "
+                                         f"expected {want!r}") from e
+            else:
+                raise AssertionError("serve --mesh data=2 ran on one card")
+    log(f"[mesh cli] serve --mesh data=1: poses.npz equal to serve's "
+        f"({sorted(a)}); --mesh data=2 on {cards} card(s): "
+        + ("JAX's ValueError" if cards == 1 else "not tried"))
+    return paths
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def mesh_train_setup(dev, worlds: int = 1, steps: int = MESH_TRAIN_STEPS):
+    """Phase 13(d)'s configuration (cfg/network_config.yml, f32, dropout
+    off), model and `worlds` lists of `steps` batches, after checking the
+    card's compute mode."""
+    import torch
+
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+
+    mode = compute_mode()
+    log(f"[mesh train] compute mode {mode}")
+    if mode != "Default":
+        raise AssertionError(f"compute mode {mode!r}: the ranks need a "
+                             "context each on the one card")
+    cfg = load_config(str(ROOT / "cfg" / "network_config.yml")).replace(
+        compute_dtype="float32", dropout_rate=0.0)
+    model = build_model(cfg, torch.Generator().manual_seed(4))
+    model.joint_net.dropout_rate = 0.0
+    batches = [[stack(train_frames(cfg, TRAIN_B, seed=20 + w * steps + s))
+                for s in range(steps)] for w in range(worlds)]
+    return cfg, model, batches
+
+
+def mesh_world(spec, cfg, model, batches, dev):
+    """One world of `spec` over gloo, every rank on `dev`, on `batches`:
+    each step against the single-process step on the card from the
+    world's own state before it, with the world's routing imposed
+    (`launch.single_rank_deviations`).  Returns (the ranks' results,
+    each step's deviations, the world's seconds); raises if the ranks
+    disagree or a gradient is not finite."""
+    from articulated_pose_tpu_torch.parallel.launch import (
+        TrainJob, run_ranks, single_rank_deviations, train_job)
+
+    devices = [str(dev)] * (2 if spec == "data=2" else 4)
+    job = TrainJob(mesh=spec, devices=devices, config=cfg, model=model,
+                   batches=batches, capture=True)
+    t0 = time.perf_counter()
+    out = run_ranks(train_job, job, devices, timeout=300.0)
+    seconds = time.perf_counter() - t0
+    for r in out[1:]:
+        if r["metrics"] != out[0]["metrics"]:
+            raise AssertionError(f"[mesh train {spec}] ranks disagree")
+    if not all(m["grads_finite"] for m in out[0]["metrics"]):
+        raise AssertionError(f"[mesh train {spec}] non-finite gradients")
+    return job, out, single_rank_deviations(job, out, dev), seconds
+
+
+def step_text(devs) -> str:
+    from articulated_pose_tpu_torch.parallel.launch import BOUNDS
+
+    return "; ".join(
+        f"{s + 1}: " + ", ".join(f"{k} {d[k]:.2e}" for k in BOUNDS)
+        + f" (worst leaf {d['worst_leaf']}; the single process's own "
+        f"choices differ at {d['flips']} ReLU or max and "
+        f"{d['heatmap_flips']} heatmap sign(s))"
+        for s, d in enumerate(devs))
+
+
+def outside(devs) -> bool:
+    from articulated_pose_tpu_torch.parallel.launch import BOUNDS
+
+    return any(d[k] > bound for d in devs for k, bound in BOUNDS.items())
+
+
+def without_heatmap_signs(job, out, dev):
+    """The world's steps held as `single_rank_deviations` holds them but
+    with the heatmap residuals' signs left to the single process."""
+    from articulated_pose_tpu_torch.parallel.launch import \
+        single_rank_deviations
+    from articulated_pose_tpu_torch.train.routing import HEATMAP
+
+    stripped = [dict(r, routing=[{k: v for k, v in step.items()
+                                  if k != HEATMAP} for step in r["routing"]])
+                for r in out]
+    return single_rank_deviations(job, stripped, dev)
+
+
+def mesh_train(dev):
+    """Phase 13(d): the sharded train step over gloo, every rank on the
+    card, each step held to `launch.BOUNDS`; the shards' kernels held
+    against their plain versions first.  Returns each world's launch
+    counts (summed over its ranks)."""
+    import copy
+
+    import torch
+
+    from articulated_pose_tpu_torch.parallel.launch import BOUNDS
+    from articulated_pose_tpu_torch.train.state import (TrainState,
+                                                        forward_loss,
+                                                        to_device,
+                                                        train_step)
+
+    cfg, model, (batches,) = mesh_train_setup(dev)
+    # the kernels of each data shard's forward (B=8; the kernels' inputs
+    # are the clouds alone, so 'model' does not change them)
+    probe = TrainState(copy.deepcopy(model).to(dev), cfg)
+    half = TRAIN_B // 2
+    with held_to_plain("mesh train shards") as held, torch.no_grad():
+        for b in batches:
+            for rows in (slice(0, half), slice(half, TRAIN_B)):
+                forward_loss(probe, to_device(
+                    {k: v[rows] for k, v in b.items()}, dev), train=True)
+    # the single process's step time on the same batches
+    single = TrainState(copy.deepcopy(model).to(dev), cfg)
+    on_card = [to_device(b, dev) for b in batches]
+    train_step(single, on_card[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in on_card[1:]:
+        train_step(single, b)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / (len(on_card) - 1)
+    paths = {}
+    for spec in MESH_WORLDS:
+        world = 2 if spec == "data=2" else 4
+        _, out, devs, seconds = mesh_world(spec, cfg, model, batches, dev)
+        launches = {k: sum(r["launches"][k] for r in out)
+                    for k in out[0]["launches"]}
+        ms = np.mean([r["ms"][1:] for r in out])
+        log(f"[mesh train {spec}] ranks on {[r['device'] for r in out]}; "
+            f"rank 0's sharded weights {out[0]['sharded']}; against the "
+            f"single-process step from the world's state, its routing "
+            f"imposed, step by step: {step_text(devs)} (bounds {BOUNDS}); "
+            f"{ms:.2f} ms a step (ranks' host clock, steps "
+            f"2-{MESH_TRAIN_STEPS}, routing capture on; single process "
+            f"{single_ms:.2f}); world {seconds:.1f} s; launches (all ranks) "
+            f"{launches}")
+        if outside(devs):
+            raise AssertionError(f"[mesh train {spec}] outside its bounds")
+        want = expected_launches(fps2=world * MESH_TRAIN_STEPS,
+                                 ball_query_group=2 * world * MESH_TRAIN_STEPS,
+                                 three_nn=2 * world * MESH_TRAIN_STEPS)
+        if launches != want:
+            raise AssertionError(f"[mesh train {spec}] launches {launches}, "
+                                 f"expected {want}")
+        log_held(f"mesh train {spec}", held, launches)
+        paths[f"mesh train {spec}"] = launches
+    return paths
+
+
+def mesh_soak(dev, worlds: int, steps: int) -> int:
+    """`--soak`: `worlds` worlds of each mesh of MESH_WORLDS, `steps`
+    steps each, each step held as phase 13(d) holds it; a step where the
+    heatmap's signs differed is also held without them imposed.  Returns
+    the exit code: 1 if any step left its bounds."""
+    from articulated_pose_tpu_torch.parallel.launch import BOUNDS
+
+    cfg, model, batches = mesh_train_setup(dev, worlds, steps)
+    worst = {spec: {k: 0.0 for k in BOUNDS} for spec in MESH_WORLDS}
+    failed, flipped = [], 0
+    for w in range(worlds):
+        for spec in MESH_WORLDS:
+            job, out, devs, seconds = mesh_world(spec, cfg, model,
+                                                 batches[w], dev)
+            log(f"[soak {spec} world {w + 1}] {seconds:.1f} s; "
+                f"{step_text(devs)}")
+            for d in devs:
+                for k in BOUNDS:
+                    worst[spec][k] = max(worst[spec][k], d[k])
+            if outside(devs):
+                failed.append(f"{spec} world {w + 1}")
+            if any(d["heatmap_flips"] for d in devs):
+                flipped += sum(1 for d in devs if d["heatmap_flips"])
+                log(f"[soak {spec} world {w + 1}] the same steps without "
+                    f"the heatmap's signs imposed: "
+                    f"{step_text(without_heatmap_signs(job, out, dev))}")
+    log(f"[soak] {worlds} worlds of each of {list(MESH_WORLDS)}, {steps} "
+        f"steps each: {flipped} step(s) with a heatmap sign that the single "
+        f"process takes otherwise; the largest deviations {worst} (bounds "
+        f"{BOUNDS}); outside the bounds: {failed or 'none'}")
+    return 1 if failed else 0
+
+
+def more_picks_than_points(dev):
+    """Phase 13(e): R6.  `fps` and `fps2` with more picks than points,
+    equal to the plain versions; then the joint baseline's train step at
+    N=256.  Returns its launch counts."""
+    import tempfile
+
+    import torch
+
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.ops.kernels import (fps, launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.train.joint_baseline import \
+        JointBaselineTrainer
+    from articulated_pose_tpu_torch.train.state import to_device
+
+    rng = np.random.RandomState(13)
+    for N in R6_N:
+        xyz = torch.from_numpy(rng.rand(4, N, 3).astype(np.float32)).to(dev)
+        got = fps.fps(xyz, 512)
+        check_equal(f"fps N{N}->512", got, fps.fps_plain(xyz, 512))
+        got2 = fps.fps2(xyz, 512, 128)
+        check_equal(f"fps2 N{N}->512->128", got2,
+                    fps.fps2_plain(xyz, 512, 128))
+        if not (got[0][:, N:] == 0).all():
+            raise AssertionError(f"fps N{N}: a pick past N is not 0")
+    cfg = load_config(category="eyeglasses", n_max_parts=3,
+                      batch_size=CLI_B, num_points=R6_JB_N)
+    with tempfile.TemporaryDirectory() as work:
+        tr = JointBaselineTrainer(cfg, work, device=dev)
+        batch = to_device(stack(train_frames(cfg, CLI_B, seed=9)), dev)
+        with held_to_plain("mesh R6 joint baseline") as held:
+            losses = [float(tr.train_step(batch)["total_loss"])]
+        reset_launch_counts()
+        losses += [float(tr.train_step(batch)["total_loss"])
+                   for _ in range(R6_JB_STEPS)]
+        counts = launch_counts()
+    check_launches("joint_baseline N=256", counts, fps=2 * R6_JB_STEPS,
+                   ball_query_group=2 * R6_JB_STEPS)
+    log_held("mesh R6 joint baseline", held, counts)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"joint baseline at N={R6_JB_N}: {losses}")
+    log(f"[mesh R6] fps and fps2 at N {R6_N} with 512 (and 512 -> 128) "
+        f"picks: equal to the plain versions, picks past N index 0; joint "
+        f"baseline B={CLI_B} N={R6_JB_N} (SA1 picks 512): 1 + {R6_JB_STEPS} "
+        f"steps, losses {', '.join(f'{x:.4f}' for x in losses)}; launches "
+        f"{counts}")
+    return counts
+
+
+def mesh_path(dev):
+    """Phase 13: the device mesh.  Returns each sub-path's launch
+    counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+
+    cfg = NetworkConfig(category="eyeglasses", n_max_parts=3,
+                        num_points=N_POINTS, batch_size=SERVE_BATCH)
+    state = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    clouds, _, _ = articulated_frames(np.random.RandomState(12),
+                                      PACKED_BATCH, N_POINTS, 3)
+    paths = {"mesh serve f32": sharded_serve(
+        "serve f32", cfg, state, clouds[:SERVE_BATCH], dev,
+        dict(fps2=1, ball_query_group=2, three_nn=2))}
+    packed = cfg.replace(compute_dtype="bfloat16", ball_query_packed=True,
+                         batch_size=PACKED_BATCH)
+    paths["mesh serve packed bf16"] = sharded_serve(
+        "serve packed bf16", packed, state, clouds, dev,
+        dict(fps2=1, ball_query_group_packed=2, three_nn=2))
+    paths.update(mesh_cli(dev))
+    paths.update(mesh_train(dev))
+    paths["mesh R6 joint baseline"] = more_picks_than_points(dev)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2216,6 +2718,9 @@ def main() -> int:
         for line in ptxas_lines(log_text):
             log(f"[build]   {line}")
     log(f"[build] all sources in parallel: {time.perf_counter() - t0:.2f} s")
+    if sys.argv[1:2] == ["--soak"]:
+        worlds, steps = (int(x) for x in sys.argv[2:4])
+        return mesh_soak(dev, worlds, steps)
 
     with phase("2 kernels"):
         kernels, entries = compare_kernels(dev)
@@ -2240,6 +2745,8 @@ def main() -> int:
         paths.update(synthetic_e2e(dev))
     with phase("12 CLI"):
         paths.update(cli_path(dev))
+    with phase("13 mesh"):
+        paths.update(mesh_path(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -22,6 +22,7 @@ from articulated_pose_tpu.utils.prediction_io import \
     save_batch_predictions as jsave
 from articulated_pose_tpu_torch import main as cli
 from articulated_pose_tpu_torch.config import load_config
+from articulated_pose_tpu_torch.parallel.mesh import make_mesh
 from articulated_pose_tpu_torch.pose.pipeline import PoseFitConfig
 from articulated_pose_tpu_torch.registry import get_category
 from articulated_pose_tpu_torch.serving import PosePredictor, serve_clouds
@@ -289,9 +290,20 @@ def test_serve_input_short_last_batch(demo_work, tmp_path, capsys):
     run("serve", *TINY, "--work_dir", demo_work, "--synthetic",
         "--synthetic_frames", "3", "--output", out)
     assert np.load(out)["R"].shape == (3, 3, 3, 3)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        run("serve", *TINY, "--work_dir", demo_work, "--synthetic",
-            "--mesh", "data=2")
+    # --mesh data=2 on two copies of the CPU: each batch of B splits into
+    # two shards, each with its own draws (parallel/mesh.py)
+    run("serve", *TINY, "--work_dir", demo_work, "--input",
+        str(tmp_path / "clouds.npy"), "--output", out, "--mesh", "data=2")
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "served 5 clouds" in last and "mesh=data=2" in last
+    got = np.load(out)
+    mesh = make_mesh("data=2", devices=[torch.device("cpu")] * 2)
+    want = serve_clouds(PosePredictor(cfg, work_dir=demo_work, mesh=mesh),
+                        clouds, B)
+    assert set(got.files) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_joint_baseline_demo_then_eval(tmp_path, capsys):

@@ -56,10 +56,41 @@ def test_plan_holds_the_cloud(B, N):
 
 
 @pytest.mark.parametrize("B,N,np1", [(0, 2048, 512), (2, 2048, 0),
-                                     (2, 100, 101)])
+                                     (2, 0, 1)])
 def test_plan_rejects_bad_shapes(B, N, np1):
     with pytest.raises(ValueError):
         fps.fps_plan(B, N, np1)
+
+
+# more picks than points, as the TPU kernels take them (the joint
+# baseline's SA1 picks 512): the plan is the cloud's, whatever np1 is
+@pytest.mark.parametrize("N", [1, 100, 511])
+@pytest.mark.parametrize("B", [1, 16])
+def test_plan_takes_more_picks_than_points(B, N):
+    assert fps.fps_plan(B, N, 512) == fps.fps_plan(B, N, 1)
+
+
+# picks past the cloud's points: every running minimum is 0, so each is
+# index 0; the plain versions against the Pallas kernels in interpret
+# mode, exact (fps2's level 2 also picks more than level 1 holds)
+@pytest.mark.parametrize("N", [1, 100])
+def test_more_picks_than_points_match_pallas(N):
+    xyz = np.random.RandomState(50 + N).rand(2, N, 3).astype(np.float32)
+    idx, new_xyz = (v.numpy() for v in fps.fps_plain(torch.from_numpy(xyz),
+                                                     128))
+    want = np.asarray(farthest_point_sample_pallas(128, jnp.asarray(xyz),
+                                                   interpret=True))
+    np.testing.assert_array_equal(idx, want)
+    assert (idx[:, N:] == 0).all()
+    np.testing.assert_array_equal(
+        new_xyz, np.take_along_axis(xyz, idx[..., None].astype(np.int64), 1))
+    for np1, np2 in ((128, 32), (64, 96)):
+        got = [v.numpy() for v in fps.fps2_plain(torch.from_numpy(xyz), np1,
+                                                 np2)]
+        want = [np.asarray(v) for v in farthest_point_sample2_pallas(
+            np1, np2, jnp.asarray(xyz), interpret=True)]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -252,6 +252,32 @@ def test_fps_edge_pick_counts(dev):
     _check_launch(xyz, 2048, 128, "w1p4", 16)
 
 
+# more picks than points (R6): past the cloud's last distinct point every
+# pick is index 0, and no step runs; at every cluster size, so that CTAs
+# holding no point leave the loop with the others
+@pytest.mark.parametrize("N", [1, 100, 511])
+@pytest.mark.parametrize("cluster", [1, 2, 16])
+@pytest.mark.parametrize("streamed", [False, True])
+def test_fps_more_picks_than_points(dev, N, cluster, streamed):
+    xyz = _cloud(36, 3, N, dev)
+    variant = "stream" if streamed else _fitting(N, cluster)
+    _check_launch(xyz, 512, 0, variant, cluster)
+    _check_launch(xyz, 512, 128, variant, cluster)
+    _check_launch(xyz, 64, 96, variant, cluster)
+
+
+@pytest.mark.parametrize("N", [1, 100, 511])
+def test_fps_wrappers_more_picks_than_points(dev, N):
+    xyz = _cloud(37, 4, N, dev)
+    for fn, plain, args in ((fps.fps, fps.fps_plain, (512,)),
+                            (fps.fps2, fps.fps2_plain, (512, 128))):
+        got = fn(xyz, *args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(xyz, *args)):
+            assert torch.equal(g, w)
+        assert (got[0][:, N:] == 0).all()
+
+
 def test_fps2_one_large_cloud(dev):
     xyz = _cloud(34, 1, 32768, dev)
     assert fps.fps_plan(1, 32768, 512)[1] == 16
@@ -422,12 +448,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fps.fps2(xyz.double(), 8, 4)
     with pytest.raises(ValueError, match="contiguous"):
         three_nn.three_nn(xyz[:, ::2], xyz)
-    with pytest.raises(ValueError, match="np1 <= N"):
-        fps.fps2(xyz, 128, 4)
+    # more picks than points is a shape the kernels take (R6); no pick is not
+    with pytest.raises(ValueError, match="np1 and np2 > 0"):
+        fps.fps2(xyz, 128, 0)
     with pytest.raises(ValueError, match="empty"):
         ball_query.ball_query_idx(0.1, 0, xyz, xyz)
-    with pytest.raises(ValueError, match="npoint <= N"):
-        fps.fps(xyz, 65)
+    with pytest.raises(ValueError, match="npoint > 0"):
+        fps.fps(xyz, 0)
     with pytest.raises(ValueError, match="power-of-two bucket"):
         ball_query.ball_query_group_bucket(0.1, 24, xyz, xyz)
     with pytest.raises(ValueError, match="contiguous"):
