@@ -12,7 +12,10 @@ takes the kernel.  `profile_stages` times the flagship forward, its
 kernels and the pose fit's sub-stages on the card.  `train` trains the
 model (`main.py train`'s path) from the host data feed of `data/`.
 `main` (`python -m articulated_pose_tpu_torch`) is the command line:
-`main.py`'s commands and flags, on the card by default.
+`main.py`'s commands and flags, on the card by default.  `utils/tf_ckpt`
+loads the reference's TF1 checkpoints (`utils/tf_bundle`, no
+TensorFlow), held to the float64 TF graph of `utils/ref_forward`;
+`tools/` turns assets and depth renders into frames.
 
 This package imports torch and numpy only: never jax, flax or the JAX
 package, so it runs on a GPU host that has none of them.

@@ -26,6 +26,27 @@ from articulated_pose_tpu_torch.data.labeling import JointSpec, NormInfo, build_
 from articulated_pose_tpu_torch.utils import transforms as tr
 
 
+def sample_mesh_points(vertices: np.ndarray, faces: np.ndarray, n: int,
+                       rng: np.random.RandomState) -> np.ndarray:
+    """Area-weighted surface sampling of a triangle mesh (synthetic.py:24).
+
+    The capability behind the reference's ProbSample op self-test
+    (reference: tf_ops/sampling/tf_sampling.py:60-89 — cumsum over
+    triangle areas + inverse-CDF draw + barycentric placement).
+    """
+    v0 = vertices[faces[:, 0]]
+    v1 = vertices[faces[:, 1]]
+    v2 = vertices[faces[:, 2]]
+    areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=1)
+    cdf = np.cumsum(areas)
+    cdf = cdf / cdf[-1]
+    tri = np.searchsorted(cdf, rng.rand(n), side="right")
+    tri = np.minimum(tri, len(faces) - 1)
+    r1 = np.sqrt(rng.rand(n, 1))
+    r2 = rng.rand(n, 1)
+    return ((1 - r1) * v0[tri] + r1 * (1 - r2) * v1[tri] + r1 * r2 * v2[tri])
+
+
 @dataclasses.dataclass
 class FrameGT:
     """Ground truth for one rendered frame."""

@@ -125,8 +125,11 @@ def group(radius: float, nsample: int, xyz: torch.Tensor,
 def sample_and_group(npoint: int, radius: float, nsample: int,
                      xyz: torch.Tensor, points: Optional[torch.Tensor],
                      dtype: torch.dtype, ball_query_impl: str = "xla",
-                     ball_query_packed: bool = False, precomputed_fps=None):
-    """FPS → ball query → group → centre (pointnet2.py:40-120).
+                     ball_query_packed: bool = False, precomputed_fps=None,
+                     knn: bool = False):
+    """FPS → ball query (or, with knn, the nsample nearest points:
+    JAX's SetAbstraction(knn=True), pointnet2.py:69-70) → group → centre
+    (pointnet2.py:40-120).
 
     xyz (B, N, 3) f32, points (B, N, C) or None -> (new_xyz (B, M, 3),
     new_points (B, M, S, 3 + C)).
@@ -139,8 +142,13 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
         _, new_xyz = precomputed_fps
     else:
         _, new_xyz = fps(xyz, npoint)
-    grouped, idx = group(radius, nsample, xyz, new_xyz, points is not None,
-                         ball_query_impl, ball_query_packed)
+    if knn:
+        _, idx = core.knn_point(nsample, xyz, new_xyz)
+        grouped = core.group_point(xyz, idx) - new_xyz[:, :, None]
+    else:
+        grouped, idx = group(radius, nsample, xyz, new_xyz,
+                             points is not None, ball_query_impl,
+                             ball_query_packed)
     if points is None:
         return new_xyz, grouped
     return new_xyz, torch.cat([grouped.to(dtype),
@@ -151,8 +159,9 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
 class SetAbstraction(nn.Module):
     """Shared MLP over each neighbourhood, then max pool over its S points.
 
-    The neighbourhoods are built by the caller (`sample_and_group`), so
-    the module only holds weights: input (B, M, S, C) -> (B, M, C').
+    The neighbourhoods are built by the caller (`sample_and_group`, whose
+    `knn` is JAX's `SetAbstraction(knn=True)`), so the module only holds
+    weights: input (B, M, S, C) -> (B, M, C').
     The last MLP layer emits `pool_dtype` and the pool runs in it; the
     pooled output is cast to `act_dtype`, or else to `dtype`
     (pointnet2.py:177-195).

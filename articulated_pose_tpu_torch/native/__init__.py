@@ -1,13 +1,15 @@
-"""ctypes bindings to the native (C++) labeling fast path: counterpart of
-`articulated_pose_tpu/native/__init__.py` (labeling only).
+"""ctypes bindings to the native (C++) fast paths: counterpart of
+`articulated_pose_tpu/native/__init__.py`.
 
-`labeling.cpp` is built at first use with `g++ -O3 -fPIC -shared
--std=c++17` into the package's `_build/` (listed in `.gitignore`), keyed
-by a hash of the source and the flags, and loaded through ctypes.
+`labeling.cpp` and `render_balls.cpp` are built together at first use
+with `g++ -O3 -fPIC -shared -std=c++17` into one library in the
+package's `_build/` (listed in `.gitignore`), keyed by a hash of the
+sources and the flags, and loaded through ctypes.
 `build_labels_native` has the interface and semantics of
-`data.labeling.build_sample`'s inner math ('AC' layout).  `available()`
-says whether the library builds and loads; `load()` raises with the
-compiler's message when it does not.
+`data.labeling.build_sample`'s inner math ('AC' layout);
+`render_balls_native` is `utils/ball_viewer.py`'s rasterizer.
+`available()` says whether the library builds and loads; `load()` raises
+with the compiler's message when it does not.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "labeling.cpp"
+RENDER_SOURCE = SOURCE.with_name("render_balls.cpp")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 
@@ -38,16 +41,18 @@ _JT = {"revolute": 0, "prismatic": 1, "fixed": 2}
 def _compiler() -> str:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if not cxx:
-        raise RuntimeError("native labeling: no C++ compiler (g++ or $CXX)")
+        raise RuntimeError("native library: no C++ compiler (g++ or $CXX)")
     return cxx
 
 
 def _build() -> pathlib.Path:
-    """Compile labeling.cpp into _build/ unless that exact build exists."""
+    """Compile the sources into _build/ unless that exact build exists."""
     cxx = _compiler()
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
-        [cxx, *CXX_FLAGS]).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"labeling_{digest}.so"
+    sources = [SOURCE, RENDER_SOURCE]
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in sources)
+                            + " ".join([cxx, *CXX_FLAGS]).encode()
+                            ).hexdigest()[:16]
+    out = BUILD_DIR / f"native_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -55,11 +60,12 @@ def _build() -> pathlib.Path:
     # sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
+                           *(str(s) for s in sources)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"native labeling: {cxx} failed (rc "
+        raise RuntimeError(f"native library: {cxx} failed (rc "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
@@ -90,9 +96,15 @@ def load() -> ctypes.CDLL:
                     c_f32, c_f32, c_f32, c_f32, c_f32,
                     c_f32, c_f32, c_f32, c_f32, c_f32, c_f32,
                 ]
+                lib.ancsh_render_balls.restype = ctypes.c_int
+                lib.ancsh_render_balls.argtypes = [
+                    ctypes.c_int32, ctypes.c_int32,
+                    ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, c_i32,
+                    c_f32, c_f32, c_f32, ctypes.c_int32,
+                ]
                 _lib = lib
                 return _lib
-        raise RuntimeError(f"the native labeling library is unavailable: "
+        raise RuntimeError(f"the native library is unavailable: "
                            f"{_error}")
 
 
@@ -189,3 +201,31 @@ def build_labels_native(parts_pts: Sequence[np.ndarray],
         "orient_gt": orient, "joint_cls_gt": jcls, "joint_cls_mask": jmask,
         "joint_params_gt": jparams,
     }
+
+
+def render_balls_native(image: np.ndarray, xyz: np.ndarray,
+                        colors: np.ndarray, ballradius: int) -> None:
+    """Z-buffered sphere splatting into `image` (H, W, 3 uint8, C order),
+    in place (the JAX package's native/__init__.py:164-190).  xyz is
+    (N, 3) int32 screen coordinates (row, col, depth; larger depth is
+    closer); colors (N, 3) float32 in [0, 255].  Native twin of
+    utils.ball_viewer._render_balls_numpy."""
+    lib = load()
+    if (image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3
+            or not image.flags.c_contiguous):
+        raise ValueError("image must be a C-contiguous (H, W, 3) uint8 array")
+    xyz = np.ascontiguousarray(xyz, np.int32)
+    r, g, b = (np.ascontiguousarray(colors[:, c], np.float32)
+               for c in range(3))
+
+    def fp32(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    rc = lib.ancsh_render_balls(
+        np.int32(image.shape[0]), np.int32(image.shape[1]),
+        image.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        np.int32(xyz.shape[0]),
+        xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        fp32(r), fp32(g), fp32(b), np.int32(ballradius))
+    if rc != 0:
+        raise RuntimeError(f"native ball render failed rc={rc}")

@@ -266,3 +266,23 @@ def interp_weights(dist: torch.Tensor) -> torch.Tensor:
     """Normalised inverse squared-distance weights (B, N, 3)."""
     w = 1.0 / torch.clamp_min(dist, 1e-10)
     return w / w.sum(dim=-1, keepdim=True)
+
+
+def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """k nearest neighbours (core.py:259, tf_grouping.py:48-73): xyz
+    (B, N, 3), new_xyz (B, M, 3) -> (dist (B, M, k) squared ascending,
+    idx (B, M, k) int32).  torch.topk over `pairwise_sqdist`; among equal
+    distances it may pick another order than lax.top_k."""
+    neg, idx = torch.topk(-pairwise_sqdist(new_xyz, xyz), k, dim=-1)
+    return -neg, idx.to(torch.int32)
+
+
+def prob_sample(weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF categorical sampling (core.py:269, tf_sampling
+    ProbSample): weights (B, N) unnormalised, uniforms (B, M) in [0, 1),
+    drawn by the caller -> (B, M) int32."""
+    cdf = torch.cumsum(weights, dim=1)
+    cdf = cdf / cdf[:, -1:]
+    idx = torch.searchsorted(cdf.contiguous(), uniforms.contiguous(),
+                             right=True)
+    return torch.clamp_max(idx, weights.shape[1] - 1).to(torch.int32)

@@ -197,7 +197,7 @@ def launch(kernel: CudaKernel, radius: float, nsample: int,
     args = (list(VARIANTS).index(plan.variant), int(plan.staged),
             ptr(xyz), ptr(new_xyz), B, N, M, nsample, _r2(radius))
     out = (ptr(cnt), None if idx is None else ptr(idx), stream_of(xyz))
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernel.scope():
         if tier == "idx":
             rc = lib.ball_query_idx_launch(*args, *out)
         elif tier == "group":

@@ -17,6 +17,7 @@ loader maps it once for all of them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -124,6 +125,14 @@ class CudaKernel:
             self._bind(lib)
             self._lib = lib
         return self._lib
+
+    def scope(self):
+        """The scope of one launch: under torch.profiler, a range named
+        "kernel:<name>", so a trace (`utils/profiling.trace`) names the
+        entry that launched each CUDA function; nothing otherwise."""
+        if torch.autograd._profiler_enabled():
+            return torch.profiler.record_function(f"kernel:{self.name}")
+        return contextlib.nullcontext()
 
     def build_log(self) -> str:
         """What ptxas reported (registers, shared memory, spills)."""

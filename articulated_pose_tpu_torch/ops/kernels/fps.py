@@ -152,7 +152,7 @@ def launch(kernel: CudaKernel, xyz: torch.Tensor, np1: int, np2: int,
     # the streamed levels' running minima: one row a cloud
     scratch = (torch.empty((B, N + np1), dtype=torch.int32, device=dev)
                if streams(variant, np1, np2) else None)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernel.scope():
         rc = lib.fps_launch(list(VARIANTS).index(variant), cluster, ptr(xyz),
                             B, N, np1, np2, ptr(idx1), ptr(xyz1),
                             None if idx2 is None else ptr(idx2),

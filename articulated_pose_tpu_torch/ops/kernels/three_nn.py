@@ -130,7 +130,7 @@ def launch(kernel: CudaKernel, xyz1: torch.Tensor, xyz2: torch.Tensor,
     dev = xyz1.device
     dist = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
     idx = torch.empty((B, N, 3), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernel.scope():
         rc = fn(list(VARIANTS).index(plan.variant), int(plan.staged),
                 ptr(xyz1), ptr(xyz2), B, N, M, ptr(dist), ptr(idx),
                 stream_of(xyz1))

@@ -4,7 +4,8 @@
 A fixed-iteration damped Gauss-Newton on the 6-dof rotation-vector pair
 with the normal equations assembled analytically (lm.py:108-199), and the
 closed-form alternating-Kabsch estimator used for RANSAC hypotheses.
-All functions take leading batch dims.  Control flow on tensor values is
+All functions but the autodiff oracle `lm_refine_joint_ad` take leading
+batch dims.  Control flow on tensor values is
 `torch.where`, never a host branch, and the 6×6 solve does not check for
 singularity (`solve_ex`), so the whole path can run without a host sync.
 """
@@ -192,6 +193,33 @@ def lm_refine_joint(rotvec0, rotvec1, x0, y0, m0, x1, y1, m1, joint_dir,
         lam = torch.clamp(torch.where(better, lam * 0.33, lam * 3.0),
                           1e-8, 1e6)
     return p[..., :3], p[..., 3:]
+
+
+def lm_refine_joint_ad(rotvec0, rotvec1, x0, y0, m0, x1, y1, m1, joint_dir,
+                       joint_mult, *, iters: int = 20,
+                       prismatic: bool = False):
+    """The autodiff oracle of `lm_refine_joint` (lm.py:203): the same
+    damped Gauss-Newton, its Jacobian from `torch.func.jacrev` of
+    `joint_residuals`.  One problem, no batch dims: rotvec* (3,), x*/y*
+    (P, 3), m* (P,), joint_dir (3,), joint_mult a 0-d tensor."""
+    def resid(p):
+        return joint_residuals(p, x0, y0, m0, x1, y1, m1, joint_dir,
+                               joint_mult, prismatic)
+
+    jac = torch.func.jacrev(resid)
+    p = torch.cat([rotvec0, rotvec1])
+    lam = torch.tensor(1e-3, dtype=p.dtype, device=p.device)
+    for _ in range(iters):
+        r = resid(p)
+        J = jac(p)                                          # (R, 6)
+        dp = torch.linalg.solve(J.T @ J + lam * _eye(p, 6), -(J.T @ r))
+        p_new = p + dp
+        r_new = resid(p_new)
+        better = (r_new * r_new).sum() < (r * r).sum()
+        p = torch.where(better, p_new, p)
+        lam = torch.clamp(torch.where(better, lam * 0.33, lam * 3.0),
+                          1e-8, 1e6)
+    return p[:3], p[3:]
 
 
 def alternating_joint_rotations(x0, y0, w0, x1, y1, w1, joint_dir,

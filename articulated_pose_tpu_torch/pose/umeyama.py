@@ -9,7 +9,7 @@ samples cannot stall it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -179,6 +179,39 @@ def fit_3pt_similarity(src3: torch.Tensor, tgt3: torch.Tensor
     scale = num / (den + 1e-6 / 2.0)
     Rmu = (R * mus.unsqueeze(-2)).sum(-1)                    # R @ mus
     return R, scale, mut - scale.unsqueeze(-1) * Rmu
+
+
+def umeyama_similarity(source: torch.Tensor, target: torch.Tensor,
+                       w: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Umeyama similarity with its variance-based scale (umeyama.py:272,
+    aligning.py:580-622): (R, s, t) with target ≈ s·R@source + t.
+
+    The SVD oracle of the Horn fits above; no path of the port calls
+    it.  source/target (..., N, 3), w (..., N) or None.
+    """
+    if w is None:
+        n = source.shape[-2]
+        mu_s, mu_t = source.mean(dim=-2), target.mean(dim=-2)
+        sc, tc = source - mu_s.unsqueeze(-2), target - mu_t.unsqueeze(-2)
+        cov = tc.transpose(-1, -2) @ sc / n
+        var_s = (sc * sc).sum(dim=(-2, -1)) / n
+    else:
+        wsum = torch.clamp_min(w.sum(dim=-1), EPS)
+        mu_s, mu_t = _wmean(source, w), _wmean(target, w)
+        sc, tc = source - mu_s.unsqueeze(-2), target - mu_t.unsqueeze(-2)
+        cov = ((tc * w.unsqueeze(-1)).transpose(-1, -2) @ sc
+               / wsum[..., None, None])
+        var_s = (sc * sc * w.unsqueeze(-1)).sum(dim=(-2, -1)) / wsum
+    U, D, Vh = torch.linalg.svd(cov)
+    flip = torch.where(torch.linalg.det(U) * torch.linalg.det(Vh) < 0.0,
+                       -1.0, 1.0).to(cov.dtype)
+    U = torch.cat([U[..., :, :2], U[..., :, 2:] * flip[..., None, None]], -1)
+    D = torch.cat([D[..., :2], D[..., 2:] * flip[..., None]], -1)
+    R = U @ Vh
+    s = D.sum(dim=-1) / torch.clamp_min(var_s, EPS)
+    t = mu_t - s.unsqueeze(-1) * (R @ mu_s.unsqueeze(-1)).squeeze(-1)
+    return R, s, t
 
 
 def similarity_residual(R, s, t, source, target) -> torch.Tensor:

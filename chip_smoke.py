@@ -8,8 +8,9 @@ Phases (each prints what it found; any failure raises, so the exit code
 is non-zero):
 
 0. Require a CUDA device; print the card (nvidia-smi name and power
-   limit), the torch / CUDA / nvcc versions, whether scipy and h5py
-   import on the host and whether the native labeling library builds.
+   limit), the torch / CUDA / nvcc versions, whether scipy, h5py,
+   matplotlib, yaml, pybullet and cv2 import on the host and whether the
+   native library (labeling, ball renderer) builds.
 1. Build the CUDA sources from csrc/, one nvcc each, all at once; print
    each kernel's registers, shared memory and spills (ptxas -v).
 2. Hold each of the eleven kernels against its plain PyTorch version at
@@ -150,6 +151,31 @@ is non-zero):
    against its plain version (`held_to_plain`): the shards' shapes (B=8
    and B=32 at N=2048, B=8 at N=1024) and the joint baseline's at N=256
    are no other phase's.
+14. Reference assets: (a) the reference graph's TF1 checkpoint at full
+   width (`utils/ref_forward.synth_reference_checkpoint`, seed 1),
+   written as a TF1 bundle (`utils/tf_bundle.write_bundle`) and as an
+   npz, each loaded by `utils/tf_ckpt.load_reference_weights` into
+   cfg/network_config.yml's model (f32) on the card: every variable
+   mapped, none unmapped or mismatched, every state_dict entry
+   overwritten (a NaN sentinel); on tests/test_ckpt_parity.py's cloud
+   (seed 7, B=2, N=1024) every head within 2e-4 of the float64
+   `reference_forward` on the host (1 fps2, 2 ball_query_group, 2
+   three_nn launches); the card's FPS picks, ball-query neighbourhoods
+   and 3-NN neighbours against the float64 oracle, each difference
+   printed with its margin; PosePredictor serves 3 requests of 16 fresh
+   clouds at N=1024 (clouds/s beside the card's name and power limit,
+   StepTimer's summary), then one batch with every kernel call held
+   against its plain version (`held_to_plain`); (b) a two-part
+   Shape2Motion JSON and OBJ boxes -> URDF -> joint specs and norm info
+   -> `sample_mesh_points` at 16 articulated poses -> a depth and label
+   image each (a NumPy z-buffer, GL camera) -> `preprocess_frame`
+   (canonical points within 1e-5 of their samples) -> `build_sample`
+   -> served on the card as one batch; `get_pose` / `write_frame_h5`
+   run, or raise ImportError naming PyYAML / h5py without them; (c)
+   `ball_viewer.render_points` C++ equal to NumPy, `vis.plot3d_pts`
+   writes a PNG (or raises naming matplotlib), `profiling.trace` of one
+   served batch names each launch ("kernel:<entry>"), and
+   `device_memory_stats` gives the peak bytes.
 
     python3 chip_smoke.py --soak WORLDS STEPS
 
@@ -159,7 +185,7 @@ world and, for a step where the heatmap's signs differed, the same step
 held without them imposed.
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-13 runs with the launch counts set to 0 just before it and read
+phases 4-14 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -933,10 +959,12 @@ def expected_launches(**per_call) -> dict:
     return {name: per_call.get(name, 0) for name in KERNELS}
 
 
-def serve_requests(label, predictor, clouds, batch, per_batch):
+def serve_requests(label, predictor, clouds, batch, per_batch, timer=None):
     """Serve len(clouds) // batch requests through serve_clouds with the
     launch counts set to 0 first; check each request's launches, shapes
-    and finiteness.  Returns the path's launch counts."""
+    and finiteness; `timer` (utils/profiling.StepTimer) times each
+    request as a stage named `label`.  Returns the path's launch
+    counts."""
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
     from articulated_pose_tpu_torch.serving import serve_clouds
@@ -949,8 +977,9 @@ def serve_requests(label, predictor, clouds, batch, per_batch):
     for r in range(requests):
         before = launch_counts()
         t0 = time.perf_counter()
-        out = serve_clouds(predictor, clouds[r * batch:(r + 1) * batch],
-                           batch)
+        with (timer.stage(label) if timer else contextlib.nullcontext()):
+            out = serve_clouds(predictor, clouds[r * batch:(r + 1) * batch],
+                               batch)
         latencies.append(time.perf_counter() - t0)
         after = launch_counts()
         rise = {k: after[k] - before[k] for k in after}
@@ -2669,6 +2698,470 @@ def mesh_path(dev):
     return paths
 
 
+# --------------------------------------------------------------- phase 14
+REF_CLOUD_SEED = 7                  # tests/test_ckpt_parity.py's cloud
+REF_CKPT_SEED = 1                   # and checkpoint
+REF_BOUND = 2e-4                    # tests/test_ckpt_parity.py's bound
+REF_SERVE_B = 16
+REF_SERVE_N = 1024                  # cfg/network_config.yml's num_points
+REF_SERVE_REQUESTS = 3
+ASSET_VIEWS = 16
+ASSET_IMAGE = 160
+ASSET_SAMPLES = 30000               # mesh samples a part and view
+ASSET_BOUND = 1e-5
+# a two-part Shape2Motion tree (tests/test_tools.py's form): a lid on a
+# base, hinged along x at the base's back edge
+ASSET_MOTION = {
+    "dof_name": "dof_rootd", "center": [0, 0, 0],
+    "children": [{"dof_name": "dof_1", "center": [0.0, 0.2, 0.02],
+                  "direction": [1, 0, 0], "motion_type": "rotation",
+                  "children": None}]}
+ASSET_BOXES = (((-0.3, -0.2, -0.02), (0.3, 0.2, 0.02)),        # base
+               ((-0.3, -0.2, 0.02), (0.3, 0.2, 0.06)))         # lid
+
+
+def box_mesh(lo, hi):
+    """The 8 vertices and 12 triangles of an axis-aligned box."""
+    v = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                  for z in (lo[2], hi[2])], np.float64)
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
+                  [0, 5, 1], [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4],
+                  [1, 5, 7], [1, 7, 3]])
+    return v, f
+
+
+def gl_camera(azimuth: float, elevation: float, dist: float, target,
+              fov: float = 60.0, near: float = 0.1, far: float = 10.0):
+    """An OpenGL look-at view matrix (world -> camera, the camera looking
+    down -z) and perspective projection."""
+    target = np.asarray(target, np.float64)
+    eye = target + dist * np.array([np.cos(elevation) * np.cos(azimuth),
+                                    np.cos(elevation) * np.sin(azimuth),
+                                    np.sin(elevation)])
+    f = (target - eye) / np.linalg.norm(target - eye)
+    s = np.cross(f, [0.0, 0.0, 1.0])
+    s /= np.linalg.norm(s)
+    u = np.cross(s, f)
+    view = np.eye(4)
+    view[0, :3], view[1, :3], view[2, :3] = s, u, -f
+    view[:3, 3] = -view[:3, :3] @ eye
+    c = 1.0 / np.tan(np.radians(fov) / 2)
+    proj = np.array([[c, 0, 0, 0], [0, c, 0, 0],
+                     [0, 0, (far + near) / (near - far),
+                      2 * far * near / (near - far)], [0, 0, -1, 0]])
+    return view, proj
+
+
+def zbuffer(parts_world, view, proj, size: int):
+    """Depth and label images of per-part world points: each point goes
+    to the pixel nearest its projection and each pixel keeps the nearest
+    point.  A kept point is moved onto its pixel's ray at its own depth,
+    so the back-projection must recover it exactly (the image grid's
+    quantisation is not what the round trip measures).  Returns (depth
+    (the camera z, negative ahead), label (-1: background), the kept
+    points in the world frame, by part, in the preprocessor's
+    row-major pixel order)."""
+    H = W = size
+    pts = np.concatenate(parts_world)
+    part = np.concatenate([np.full(len(p), j) for j, p in
+                           enumerate(parts_world)])
+    cam = pts @ view[:3, :3].T + view[:3, 3]
+    clip = cam @ proj[:, :3].T + proj[:, 3]
+    col = np.rint((clip[:, 0] / clip[:, 3] + 1.0) * W / 2).astype(np.int64)
+    row = np.rint(H - (clip[:, 1] / clip[:, 3] + 1.0) * H / 2).astype(np.int64)
+    ok = (cam[:, 2] < 0) & (col >= 0) & (col < W) & (row >= 0) & (row < H)
+    pix = (row * W + col)[ok]
+    z = cam[ok, 2]
+    order = np.lexsort((-z, pix))                # nearest first a pixel
+    _, first = np.unique(pix[order], return_index=True)
+    keep = order[first]
+    pix, z, part = pix[keep], z[keep], part[ok][keep]
+    depth = np.zeros(H * W)
+    label = np.full(H * W, -1)
+    depth[pix], label[pix] = z, part
+    r, c = pix // W, pix % W
+    u, v = c * 2.0 / W - 1.0, (H - r) * 2.0 / H - 1.0
+    x = (u * -z - proj[0, 2] * z) / proj[0, 0]
+    y = (v * -z - proj[1, 2] * z) / proj[1, 1]
+    world = (np.stack([x, y, z], 1) - view[:3, 3]) @ view[:3, :3]
+    return (depth.reshape(H, W), label.reshape(H, W),
+            [world[part == j] for j in range(len(parts_world))])
+
+
+def asset_frames(tmp: str, views: int = ASSET_VIEWS, num_points: int = 1024,
+                 size: int = ASSET_IMAGE, n_max_parts: int = 3):
+    """Phase 14(b) on the host: a Shape2Motion JSON and OBJ parts ->
+    motion_json.write_urdf -> urdf.parse_urdf -> urdf_to_joint_specs and
+    norm_info_from_objs -> sample_mesh_points per part at the part's
+    articulated pose -> a depth and label image (`zbuffer`) a view ->
+    preprocess_frame -> labeling.build_sample.  Returns (the frames
+    stacked, the largest distance between a recovered canonical point
+    and the point it came from)."""
+    import os
+
+    from articulated_pose_tpu_torch.data.labeling import build_sample
+    from articulated_pose_tpu_torch.data.synthetic import sample_mesh_points
+    from articulated_pose_tpu_torch.tools import motion_json, preprocess, urdf
+    from articulated_pose_tpu_torch.utils import transforms as tr
+
+    os.makedirs(os.path.join(tmp, "part_objs"), exist_ok=True)
+    model = motion_json.parse_motion_json(ASSET_MOTION)
+    meshes = [box_mesh(*b) for b in ASSET_BOXES]
+    for link, (v, f) in zip(model.links, meshes):
+        name = "none_motion" if link.parent is None else link.name
+        with open(os.path.join(tmp, "part_objs", f"{name}.obj"), "w") as fh:
+            fh.write("".join(f"v {a:.17g} {b:.17g} {c:.17g}\n"
+                             for a, b, c in v))
+            fh.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in f))
+    syn = motion_json.write_urdf(model, tmp, obj_dir=tmp)[0]
+    parsed = urdf.parse_urdf(syn)
+    joints = urdf.urdf_to_joint_specs(parsed)
+    norm = urdf.norm_info_from_objs(parsed["obj_name"])
+    (joint,) = joints
+    if not (np.allclose(joint.position, model.joints[0].position)
+            and np.allclose(joint.axis, model.joints[0].axis)
+            and joint.jtype == "revolute"):
+        raise AssertionError(f"URDF joint {joint} is not the JSON's "
+                             f"{model.joints[0]}")
+    rng = np.random.RandomState(14)
+    frames, worst = [], 0.0
+    for k in range(views):
+        angle = rng.uniform(0.3, 1.2)
+        m2w = [np.eye(4), tr.rotation_about_line(joint.axis, joint.position,
+                                                 angle)]
+        canon = [sample_mesh_points(v, f, ASSET_SAMPLES, rng)
+                 for v, f in meshes]
+        world = [tr.apply_similarity(T, c) for T, c in zip(m2w, canon)]
+        view, proj = gl_camera(2 * np.pi * k / views + 0.3,
+                               rng.uniform(0.4, 0.8), 1.2, (0, 0, 0.03))
+        depth, label, kept = zbuffer(world, view, proj, size)
+        # camera_to_world negates the camera point (the reference's sign
+        # convention, tools/preprocess_data.py:299-303): hand it the view
+        # matrix that maps the world to the negated camera frame
+        flip = np.diag([-1.0, -1.0, -1.0, 1.0])
+        out = preprocess.preprocess_frame(depth, label, proj, flip @ view,
+                                          m2w, len(meshes))
+        if out is None:
+            raise AssertionError(f"view {k}: a part has too few pixels")
+        parts_cam, parts_canon = out
+        for T, got, want in zip(m2w, parts_canon, kept):
+            want = tr.apply_similarity(np.linalg.inv(T), want)
+            worst = max(worst, float(np.abs(got - want).max()))
+        frames.append(build_sample(parts_cam, parts_canon, joints, norm,
+                                   num_points=num_points,
+                                   n_max_parts=n_max_parts,
+                                   rng=np.random.RandomState(k)))
+    return {key: np.stack([f[key] for f in frames]) for key in frames[0]}, worst
+
+
+def fps_picks64(P: np.ndarray, npoint: int):
+    """float64 FPS (ops/numpy_ref's rule) with each pick's running
+    min-distances: (picks (B, npoint), mind (B, npoint, N) before each
+    pick)."""
+    B, N, _ = P.shape
+    picks = np.zeros((B, npoint), np.int64)
+    minds = np.zeros((B, npoint, N))
+    mind = np.full((B, N), 1e38)
+    for j in range(1, npoint):
+        last = P[np.arange(B), picks[:, j - 1]]
+        mind = np.minimum(mind, ((P - last[:, None]) ** 2).sum(-1))
+        minds[:, j] = mind
+        picks[:, j] = mind.argmax(1)
+    return picks, minds
+
+
+def oracle_picks(P: np.ndarray, dev) -> int:
+    """The card's FPS picks, ball-query neighbourhoods and 3-NN
+    neighbours on the reference path's levels against the float64 oracle
+    (ops/numpy_ref) on the same points; every pick that differs is
+    printed with its margin.  Returns how many differ."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops import numpy_ref
+    from articulated_pose_tpu_torch.ops.kernels.ball_query import \
+        ball_query_group
+    from articulated_pose_tpu_torch.ops.kernels.fps import fps2
+    from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
+
+    x0 = torch.from_numpy(P).to(dev)
+    i1, x1, i2, x2 = fps2(x0, 512, 128)
+    levels = [P.astype(np.float64), x1.cpu().double().numpy(),
+              x2.cpu().double().numpy()]
+    differ = 0
+    for lvl, (xyz, got, npoint) in enumerate(
+            ((levels[0], i1, 512), (levels[1], i2, 128)), start=1):
+        want, minds = fps_picks64(xyz, npoint)
+        got = got.cpu().numpy()
+        for b, j in zip(*np.nonzero(got != want)):
+            m = minds[b, j]
+            log(f"[ref ckpt] FPS level {lvl} cloud {b} pick {j}: card "
+                f"{got[b, j]}, float64 {want[b, j]}, margin "
+                f"{m[want[b, j]] - m[got[b, j]]:.3g} (min d2)")
+        differ += int((got != want).sum())
+    for lvl, (r, pts, q, qd) in enumerate(((0.2, x0, x1, levels[:2]),
+                                           (0.4, x1, x2, levels[1:])),
+                                          start=1):
+        _, cnt, idx = ball_query_group(r, 64, pts, q)
+        want_idx, want_cnt = numpy_ref.query_ball_point(r, 64, *qd)
+        cnt, idx = cnt.cpu().numpy(), idx.cpu().numpy()
+        for b, m in zip(*np.nonzero((cnt != want_cnt)
+                                    | (idx != want_idx).any(-1))):
+            a = set(idx[b, m, :cnt[b, m]])
+            w = set(want_idx[b, m, :want_cnt[b, m]])
+            d2 = ((qd[0][b, sorted(a ^ w)] - qd[1][b, m]) ** 2).sum(-1)
+            log(f"[ref ckpt] SA{lvl} ball query cloud {b} query {m}: "
+                f"points {sorted(a ^ w)} differ, |d2 - r2| "
+                f"{np.abs(d2 - r * r).tolist()}")
+            differ += 1
+    for name, (a, b) in (("FP2", (x1, x2)), ("FP3", (x0, x1))):
+        _, idx = three_nn(a, b)
+        an, bn = a.cpu().double().numpy(), b.cpu().double().numpy()
+        _, want = numpy_ref.three_nn(an, bn)
+        idx = idx.cpu().numpy()
+        for c, n in zip(*np.nonzero((idx != want).any(-1))):
+            d2 = ((bn[c] - an[c, n]) ** 2).sum(-1)
+            log(f"[ref ckpt] {name} 3-NN cloud {c} point {n}: card "
+                f"{idx[c, n].tolist()} (d2 {d2[idx[c, n]].tolist()}), "
+                f"float64 {want[c, n].tolist()} (d2 "
+                f"{d2[want[c, n]].tolist()})")
+            differ += 1
+    log(f"[ref ckpt] picks of the card's kernels against the float64 "
+        f"oracle on the parity cloud: {differ} differ (FPS 512 -> 128, "
+        f"SA1/SA2 ball queries, FP2/FP3 3-NN)")
+    return differ
+
+
+def reference_checkpoint(dev, tmp: pathlib.Path):
+    """Phase 14(a): the reference graph's TF1 checkpoint (synthetic,
+    full width) as a bundle and as an npz -> the port's model on the
+    card, every head within REF_BOUND of the float64 TF graph; then
+    served, and held against the plain kernels.  Returns (the
+    predictor, the served clouds, each sub-path's launch counts)."""
+    import torch
+
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.serving import PosePredictor
+    from articulated_pose_tpu_torch.utils import (ref_forward, tf_bundle,
+                                                  tf_ckpt)
+    from articulated_pose_tpu_torch.utils.profiling import StepTimer
+
+    ckpt = ref_forward.synth_reference_checkpoint(
+        np.random.RandomState(REF_CKPT_SEED))
+    prefix = str(tmp / "tf_model.ckpt-100000")
+    tf_bundle.write_bundle(prefix, ckpt)
+    np.savez(tmp / "ckpt.npz", **ckpt)
+    cfg = load_config(str(ROOT / "cfg" / "network_config.yml"),
+                      compute_dtype="float32")
+    model = build_model(cfg, device=dev)
+    loaded = {}
+    for name, path in (("bundle", prefix), ("npz", str(tmp / "ckpt.npz"))):
+        sentinel = {k: torch.full_like(v, float("nan"))
+                    for k, v in model.state_dict().items()}
+        sd, report = tf_ckpt.load_reference_weights(path, sentinel)
+        left = [k for k, v in sd.items() if not torch.isfinite(v).all()]
+        log(f"[ref ckpt] {name}: {len(report['mapped'])} of {len(ckpt)} "
+            f"variables mapped, {len(report['unmapped'])} unmapped, "
+            f"{len(report['mismatched'])} mismatched; {len(sd) - len(left)} "
+            f"of {len(sd)} state_dict entries overwritten")
+        if (report["unmapped"] or report["mismatched"] or left
+                or len(report["mapped"]) != len(ckpt)):
+            raise AssertionError(f"[ref ckpt] {name}: {report['unmapped']} "
+                                 f"{report['mismatched']} {left}")
+        loaded[name] = sd
+    for k, v in loaded["bundle"].items():
+        if not torch.equal(v, loaded["npz"][k]):
+            raise AssertionError(f"[ref ckpt] bundle and npz differ at {k}")
+    sd = loaded["bundle"]
+    model.load_state_dict(sd)
+
+    P = np.random.RandomState(REF_CLOUD_SEED).rand(
+        2, REF_SERVE_N, 3).astype(np.float32)
+    out, seconds, counts = forward_launches(
+        "ref ckpt", model, torch.from_numpy(P).to(dev),
+        expected_launches(fps2=1, ball_query_group=2, three_nn=2))
+    paths = {"ref ckpt forward": counts}
+    t0 = time.perf_counter()
+    ref = ref_forward.reference_forward(ckpt, P)
+    log(f"[ref ckpt] float64 reference_forward B=2 N={REF_SERVE_N} on the "
+        f"host: {time.perf_counter() - t0:.1f} s")
+    worst = {k: float(np.abs(out[k].double().cpu().numpy() - ref[k]).max())
+             for k in sorted(ref)}
+    log(f"[ref ckpt] card forward vs float64 TF graph, max abs diff per "
+        f"head: {json.dumps(worst)} (bound {REF_BOUND})")
+    oracle_picks(P, dev)
+    if set(worst) != set(out) or max(worst.values()) > REF_BOUND:
+        raise AssertionError("[ref ckpt] the card's forward left the "
+                             "reference graph's bound")
+
+    predictor = PosePredictor(cfg, state_dict=sd, device=dev)
+    clouds, _, _ = articulated_frames(np.random.RandomState(14),
+                                      REF_SERVE_REQUESTS * REF_SERVE_B,
+                                      REF_SERVE_N, cfg.n_max_parts)
+    timer = StepTimer()
+    paths["ref ckpt serve"] = serve_requests(
+        "ref ckpt serve", predictor, clouds, REF_SERVE_B,
+        expected_launches(fps2=1, ball_query_group=2, three_nn=2), timer)
+    log(f"[ref ckpt serve] on {card_line()}")
+    log(f"[ref ckpt serve] StepTimer: {json.dumps(timer.summary())}")
+    with held_to_plain("ref ckpt") as held:
+        predictor(clouds[:REF_SERVE_B])
+    log_held("ref ckpt", held, paths["ref ckpt serve"])
+    return predictor, clouds, paths
+
+
+def optional_imports(tmp: pathlib.Path) -> None:
+    """Phase 14(b)5: get_pose and write_frame_h5 run where PyYAML and
+    h5py import and raise ImportError naming them where they do not."""
+    from articulated_pose_tpu_torch.tools import preprocess
+
+    def yml():
+        d = tmp / "render" / "cat" / "0001" / "0"
+        d.mkdir(parents=True, exist_ok=True)
+        import yaml
+        (d / "gt.yml").write_text(yaml.safe_dump({"frame_0": {
+            "viewMat": np.eye(4).reshape(-1).tolist(),
+            "projMat": np.eye(4).reshape(-1).tolist(),
+            "obj": [[0, 0, 0, 0, [0.1, 0.2, 0.3], [0.0, 0.0, 0.0, 1.0]]]}}))
+        m2w, _, _ = preprocess.get_pose(str(tmp), "cat", "0001", "0", "0",
+                                        num_parts=2)
+        return np.allclose(m2w[1][:3, 3], [0.1, 0.2, 0.3])
+
+    def h5():
+        path = str(tmp / "h5" / "0.h5")
+        preprocess.write_frame_h5(path, [np.zeros((4, 3))], [np.ones((4, 3))])
+        import h5py
+        with h5py.File(path) as f:
+            return f["gt_coords"]["0"][()].sum() == 12
+
+    for module, needs, fn in (("yaml", "PyYAML", yml), ("h5py", "h5py", h5)):
+        try:
+            importlib.import_module(module)
+        except ImportError:
+            try:
+                fn()
+            except ImportError as e:
+                if needs not in str(e):
+                    raise
+                log(f"[assets] without {module}: ImportError naming {needs}"
+                    f" ({e})")
+                continue
+            raise AssertionError(f"[assets] {fn.__name__} ran without "
+                                 f"{module}")
+        if not fn():
+            raise AssertionError(f"[assets] {fn.__name__} read back wrong")
+        log(f"[assets] with {module}: {fn.__name__} wrote and read back")
+
+
+def asset_path(predictor, dev, tmp: pathlib.Path):
+    """Phase 14(b): assets -> frames (`asset_frames`) -> the predictor
+    of (a) on the card.  Returns the path's launch counts."""
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    t0 = time.perf_counter()
+    frames, worst = asset_frames(str(tmp / "asset"), ASSET_VIEWS,
+                                 predictor.config.num_points)
+    log(f"[assets] JSON -> URDF -> {ASSET_VIEWS} depth images "
+        f"{ASSET_IMAGE}x{ASSET_IMAGE} -> preprocess_frame -> build_sample: "
+        f"canonical points within {worst:.3g} of their samples (bound "
+        f"{ASSET_BOUND}); {time.perf_counter() - t0:.1f} s on the host")
+    if not worst <= ASSET_BOUND:
+        raise AssertionError("[assets] the back-projection left its bound")
+    reset_launch_counts()
+    res = predictor(frames["P"])
+    counts = launch_counts()
+    want = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
+    if counts != want:
+        raise AssertionError(f"[assets] launches {counts}, expected {want}")
+    B, N = frames["P"].shape[:2]
+    finite = all(np.isfinite(x).all() for x in (res.R, res.scale, res.t))
+    log(f"[assets] served {B} frames of the asset on the card: seg "
+        f"{res.segmentation.shape}, labels "
+        f"{np.unique(res.segmentation).tolist()}; GT labels "
+        f"{np.unique(frames['cls_gt']).tolist()}; "
+        f"fits finite: {finite}")
+    if res.segmentation.shape != (B, N) or not finite:
+        raise AssertionError("[assets] the served frames' fits are wrong")
+    optional_imports(tmp)
+    return counts
+
+
+def viewers_and_profiler(predictor, clouds, dev, tmp: pathlib.Path):
+    """Phase 14(c): the ball viewer (C++ against NumPy), vis, the
+    profiler's trace and memory stats.  Returns the traced batch's
+    launch counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.utils import ball_viewer, profiling, vis
+
+    colors = np.random.RandomState(0).rand(len(clouds[0]), 3) * 255
+    imgs = [ball_viewer.render_points(clouds[0], colors, size=400,
+                                      ballradius=6, xangle=0.3, yangle=-0.4,
+                                      use_native=native)
+            for native in (True, False)]
+    px = float((imgs[0] != imgs[1]).any(-1).mean())
+    log(f"[viewers] ball_viewer C++ against NumPy, 400x400: {px:.3%} of "
+        f"pixels differ; {(imgs[0].any(-1)).mean():.1%} drawn")
+    if px != 0.0 or not imgs[0].any():
+        raise AssertionError("[viewers] the native renderer disagrees")
+    try:
+        importlib.import_module("matplotlib")
+    except ImportError:
+        try:
+            vis.plot3d_pts([[clouds[0]]], save_path=str(tmp / "p.png"))
+        except ImportError as e:
+            if "matplotlib" not in str(e):
+                raise
+            log(f"[viewers] without matplotlib: vis raises ({e})")
+        else:
+            raise AssertionError("[viewers] vis ran without matplotlib")
+    else:
+        vis.plot3d_pts([[clouds[0]]], [["cloud"]], title="served",
+                       save_path=str(tmp / "p.png"))
+        log(f"[viewers] vis.plot3d_pts wrote {(tmp / 'p.png').stat().st_size}"
+            f" bytes of PNG")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with profiling.trace(str(tmp / "trace")):
+        predictor(clouds[:REF_SERVE_B])
+    counts = launch_counts()
+    events = json.loads((tmp / "trace" / profiling.TRACE_FILE).read_text())
+    cats = [(e.get("cat"), e.get("name")) for e in events["traceEvents"]]
+    # the host's ranges (the trace repeats each on the card's timeline as
+    # a "gpu_user_annotation")
+    named = {k: cats.count(("user_annotation", f"kernel:{k}"))
+             for k in ("fps2", "ball_query_group", "three_nn")}
+    device = sum(c == "kernel" for c, _ in cats)
+    log(f"[profiler] trace of one served batch: {len(cats)} events, "
+        f"{device} device kernels; launch ranges {json.dumps(named)}")
+    if any(named[k] != counts[k] for k in named):
+        raise AssertionError(f"[profiler] the trace names {named}, the "
+                             f"batch launched {counts}")
+    stats = profiling.device_memory_stats()
+    log(f"[profiler] device_memory_stats: peak allocated "
+        f"{stats['cuda:0']['allocated_bytes.all.peak']} bytes, reserved "
+        f"{stats['cuda:0']['reserved_bytes.all.peak']} bytes (B="
+        f"{REF_SERVE_B}, N={REF_SERVE_N}, forward + fit)")
+    return counts
+
+
+def reference_assets(dev):
+    """Phase 14.  Returns each sub-path's launch counts."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        predictor, clouds, paths = reference_checkpoint(dev, tmp)
+        paths["ref assets"] = asset_path(predictor, dev, tmp)
+        paths["ref trace"] = viewers_and_profiler(predictor, clouds, dev, tmp)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2695,7 +3188,7 @@ def main() -> int:
     log(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
         f"nvcc: {nvcc}")
-    for name in ("scipy", "h5py"):
+    for name in ("scipy", "h5py", "matplotlib", "yaml", "pybullet", "cv2"):
         try:
             importlib.import_module(name)
             found = "imports"
@@ -2708,7 +3201,7 @@ def main() -> int:
         found = "builds and loads"
     except RuntimeError as e:
         found = f"does not build ({e})"
-    log(f"[host] native labeling library (g++): {found}")
+    log(f"[host] native library (labeling, ball renderer; g++): {found}")
 
     t0 = time.perf_counter()
     seconds = build_all(KERNELS.values())
@@ -2747,6 +3240,8 @@ def main() -> int:
         paths.update(cli_path(dev))
     with phase("13 mesh"):
         paths.update(mesh_path(dev))
+    with phase("14 reference assets"):
+        paths.update(reference_assets(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:
