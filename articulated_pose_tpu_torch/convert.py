@@ -10,6 +10,8 @@ the mapping is by name:
     params/<path>/bn/scale | bias          -> <path>.bn.weight | bias
     batch_stats/<path>/bn/mean | var       -> <path>.bn.running_mean | running_var
 
+`flax_tree` is the way back (parameters, their gradients or the running
+statistics): the port's named tensors as a Flax tree, under JAX's names.
 `train_state_from_optax` carries a JAX train state across as well: the
 optax Adam moments and count and the step, so a run stopped mid-training
 continues in the port.  `joint_regression_state_dict_from_flax` does the
@@ -18,7 +20,7 @@ same mapping for the joint-regression baseline's nested variables.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,32 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray]
             arr = arr.T
         out[".".join(parts[1:-2] + [leaf])] = torch.tensor(arr)
     return out
+
+
+def flax_tree(named: Iterable[Tuple[str, torch.Tensor]],
+              collection: str = "params") -> Dict:
+    """(port name, tensor) pairs of one Flax collection ("params", or
+    "batch_stats" for the running statistics) -> the nested Flax tree
+    they come from, float64 numpy leaves under JAX's names: the inverse
+    of `state_dict_from_flax` (backbone.sa1.mlp.conv0.dense.weight
+    (Cout, Cin) -> ["backbone"]["sa1"]["mlp"]["conv0"]["dense"]["kernel"]
+    (Cin, Cout)).  Takes gradients as well as parameters."""
+    leaves = {port: flax[1:] for flax, port in _LEAVES.items()
+              if flax[0] == collection}
+    tree: Dict = {}
+    for name, value in named:
+        parts = name.split(".")
+        leaf = leaves.get(".".join(parts[-2:]))
+        if leaf is None:
+            raise KeyError(f"unexpected {collection} entry {name!r}")
+        arr = value.detach().cpu().double().numpy()
+        if leaf == ("dense", "kernel"):
+            arr = arr.T
+        node = tree
+        for p in parts[:-2] + [leaf[0]]:
+            node = node.setdefault(p, {})
+        node[leaf[1]] = arr
+    return tree
 
 
 def _flatten(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:

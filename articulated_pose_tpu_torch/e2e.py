@@ -30,7 +30,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -181,25 +181,41 @@ def to_numpy(tree):
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
 
 
+def eval_draws(dg: DeviceSynthetic, pose_cfg: PoseFitConfig, device
+               ) -> Callable[[int], Tuple]:
+    """`draw_batch(n) -> (sample, gt, PoseDraws)` of the held-out frames:
+    each batch's frames, then its fit draws, from one device generator
+    seeded EVAL_SEED."""
+    gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
+
+    def draw_batch(n):
+        sample, gt = dg.sample_batch(gen, n)
+        return sample, gt, PoseDraws.sample(n, pose_cfg, generator=gen,
+                                            device=device)
+    return draw_batch
+
+
 def evaluate(state: TrainState, dg: DeviceSynthetic, pose_cfg: PoseFitConfig,
-             test_frames: int, batch: int, device) -> Dict:
+             test_frames: int, batch: int, device,
+             draw_batch: Optional[Callable[[int], Tuple]] = None) -> Dict:
     """Held-out frames from a device generator seeded EVAL_SEED, the eval
     forward, the pose fit on the card and the NumPy report
     (scripts/train_synthetic_e2e.py:151-224).  Returns the report's
     fields, the segmentation accuracy, the joint errors and the seconds
-    of each stage."""
+    of each stage.  `draw_batch(n) -> (sample, gt, PoseDraws)` gives each
+    batch's frames and fit draws in place of the generator's (the tests
+    hand in JAX's)."""
     K = pose_cfg.n_parts
     fits, gts = [], []
     nocs_pred_l, nocs_gt_l, cls_l, seg_acc = [], [], [], []
     gts_global, P_l, cls_pred_l = [], [], []
     joint_errs: List[Dict] = []
-    gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
+    draw_batch = draw_batch or eval_draws(dg, pose_cfg, device)
     t0 = time.perf_counter()
     for lo in range(0, test_frames, batch):
         n = min(batch, test_frames - lo)
-        sample, gt = dg.sample_batch(gen, n)
+        sample, gt, draws = draw_batch(n)
         pred, _ = eval_step(state, sample)
-        draws = PoseDraws.sample(n, pose_cfg, generator=gen, device=device)
         out = fit_frame_batch({k: pred[k] for k in PRED_KEYS}, sample["P"],
                               draws, pose_cfg)
         sample, gt, pred, out = map(to_numpy, (sample, gt, pred, out))

@@ -29,8 +29,8 @@ from torch import nn
 
 from articulated_pose_tpu_torch.models.layers import (PointConv, dropout,
                                                      init_weights)
-from articulated_pose_tpu_torch.models.pointnet2 import (SetAbstraction,
-                                                        sample_and_group)
+from articulated_pose_tpu_torch.models.pointnet2 import (
+    SetAbstraction, sample_and_group, sample_and_group_all)
 
 # (npoint, radius, nsample, mlp) of the two sampled SA stages, the
 # global stage's mlp and the FC widths (joint_regression.py:37-54)
@@ -72,8 +72,7 @@ class PointNet2Cls(nn.Module):
             pts = sa(grouped, bn_momentum)
         # group-all: [xyz, features] of every point as one neighbourhood
         # (pointnet2.py:66-77)
-        dt = self.sa3.dtype
-        glob = torch.cat([xyz.to(dt), pts.to(dt)], dim=-1)[:, None]
+        _, glob = sample_and_group_all(xyz, pts, dtype=self.sa3.dtype)
         net = self.sa3(glob, bn_momentum).reshape(P.shape[0], -1)  # (B, 1024)
         for i in range(len(FC_WIDTHS)):
             net = dropout(getattr(self, f"fc{i + 1}")(net, bn_momentum),

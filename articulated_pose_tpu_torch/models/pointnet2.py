@@ -126,13 +126,14 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
                      xyz: torch.Tensor, points: Optional[torch.Tensor],
                      dtype: torch.dtype, ball_query_impl: str = "xla",
                      ball_query_packed: bool = False, precomputed_fps=None,
-                     knn: bool = False):
+                     knn: bool = False, use_xyz: bool = True):
     """FPS → ball query (or, with knn, the nsample nearest points:
     JAX's SetAbstraction(knn=True), pointnet2.py:69-70) → group → centre
     (pointnet2.py:40-120).
 
     xyz (B, N, 3) f32, points (B, N, C) or None -> (new_xyz (B, M, 3),
-    new_points (B, M, S, 3 + C)).
+    new_points (B, M, S, 3 + C)), or (B, M, S, C) without `use_xyz`
+    (the grouped features alone, pointnet2.py:114-116).
     `precomputed_fps` = (idx, new_xyz) from the two-level kernel.
     new_points is concatenated in `dtype`, the compute dtype of the MLP
     that consumes it: JAX concatenates in the promoted dtype and the
@@ -151,9 +152,30 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
                              ball_query_packed)
     if points is None:
         return new_xyz, grouped
-    return new_xyz, torch.cat([grouped.to(dtype),
-                               core.group_point(points, idx).to(dtype)],
-                              dim=-1)
+    grouped_points = core.group_point(points, idx).to(dtype)
+    if not use_xyz:
+        return new_xyz, grouped_points
+    return new_xyz, torch.cat([grouped.to(dtype), grouped_points], dim=-1)
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor],
+                         use_xyz: bool = True,
+                         dtype: Optional[torch.dtype] = None):
+    """The single global group (pointnet2.py:123-134): xyz (B, N, 3),
+    points (B, N, C) or None -> (new_xyz (B, 1, 3) zeros, new_points
+    (B, 1, N, 3 + C), or (B, 1, N, C) without `use_xyz`, or the cloud
+    (B, 1, N, 3) without points).  new_points is in `dtype`, the compute
+    dtype of the MLP that consumes it, each part cast before the concat;
+    None keeps the promoted dtype, as JAX concatenates."""
+    B = xyz.shape[0]
+    new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
+    if dtype is not None:
+        xyz = xyz.to(dtype)
+        points = None if points is None else points.to(dtype)
+    if points is None:
+        return new_xyz, xyz[:, None]
+    new_points = torch.cat([xyz, points], dim=-1) if use_xyz else points
+    return new_xyz, new_points[:, None]
 
 
 class SetAbstraction(nn.Module):
@@ -270,7 +292,7 @@ class PointNet2Backbone(nn.Module):
         """In training mode batch norm takes `bn_momentum` and dropout
         (dp1, after fc1) draws from `generator`."""
         s = self.spec
-        B, _, C = X.shape
+        C = X.shape[-1]
         if C != 3 + self.in_features:
             raise ValueError(f"expected (B, N, {3 + self.in_features}) "
                              f"clouds (in_features={self.in_features}), got "
@@ -293,12 +315,12 @@ class PointNet2Backbone(nn.Module):
             l_xyz.append(xyz)
             l_pts.append(sa(grouped, bn_momentum))
 
-        # global SA over [xyz, features] of the last level's points (:130)
-        dt = self.sa_global.dtype
-        glob = torch.cat([l_xyz[-1].to(dt), l_pts[-1].to(dt)], dim=-1)
-        l_pts.append(self.sa_global(glob[:, None], bn_momentum))  # (B, 1, C)
-        l_xyz.append(torch.zeros((B, 1, 3), dtype=torch.float32,
-                                 device=X.device))
+        # global SA over [xyz, features] of the last level's points
+        # (pointnet2.py:167), in the stage's compute dtype
+        xyz, glob = sample_and_group_all(l_xyz[-1], l_pts[-1],
+                                         dtype=self.sa_global.dtype)
+        l_pts.append(self.sa_global(glob, bn_momentum))          # (B, 1, C)
+        l_xyz.append(xyz)
 
         feats = l_pts[-1]
         for i in range(len(s.fp_mlps)):

@@ -8,7 +8,8 @@ sources and the flags, and loaded through ctypes.
 `build_labels_native` has the interface and semantics of
 `data.labeling.build_sample`'s inner math ('AC' layout);
 `render_balls_native` is `utils/ball_viewer.py`'s rasterizer.
-`available()` says whether the library builds and loads; `load()` raises
+`available()` says whether the library builds and loads (`render_available()`
+whether it holds the renderer, as JAX's); `load()` raises
 with the compiler's message when it does not.
 """
 
@@ -114,6 +115,12 @@ def available() -> bool:
     except RuntimeError:
         return False
     return True
+
+
+def render_available() -> bool:
+    """Whether the ball renderer's entry loads (native/__init__.py:162):
+    the library builds, and it holds `ancsh_render_balls`."""
+    return available() and hasattr(load(), "ancsh_render_balls")
 
 
 def build_labels_native(parts_pts: Sequence[np.ndarray],

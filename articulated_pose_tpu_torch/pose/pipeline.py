@@ -104,6 +104,10 @@ class PoseDraws:
             joint=torch.rand((batch, max(K - 1, 0), 2, cfg.niter_joint, 3),
                              generator=generator, device=device))
 
+    def to(self, device) -> "PoseDraws":
+        return PoseDraws(part=self.part.to(device),
+                         joint=self.joint.to(device))
+
 
 # the composite sort key (cls << ceil_log2(N)) | index must stay below this
 KEY_LIMIT = 2**31

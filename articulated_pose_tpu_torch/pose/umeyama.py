@@ -4,7 +4,10 @@ Every function takes arbitrary leading batch dims (the reference's vmap
 written out): points are (..., N, 3), weights (..., N).  The rotation is
 Horn's quaternion method with a fixed-iteration power method, as in the
 reference: no SVD or eigensolver, so the cost is fixed and degenerate
-samples cannot stall it.
+samples cannot stall it.  `kabsch_rotation(method="svd")` and
+`transform_pts(method="svd")` take the SVD of the cross-covariance
+instead, as the reference's NumPy `rotate_pts` does; no path of the fit
+uses it.
 """
 
 from __future__ import annotations
@@ -94,11 +97,29 @@ def _cross_cov(tc: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
     return tc.transpose(-1, -2) @ sc
 
 
+def _svd_rotation(M: torch.Tensor) -> torch.Tensor:
+    """Proper rotation from a (..., 3, 3) cross-covariance by SVD with
+    the determinant flip (umeyama.py:37-43)."""
+    U, _, Vh = torch.linalg.svd(M)
+    d = torch.linalg.det(U) * torch.linalg.det(Vh)
+    flip = torch.where(d < 0.0, -1.0, 1.0).to(M.dtype)
+    U = torch.cat([U[..., :, :2], U[..., :, 2:] * flip[..., None, None]], -1)
+    return U @ Vh
+
+
 def kabsch_rotation(source: torch.Tensor, target: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
-    """Rotation R with target ≈ R @ source, both centred internally."""
+                    w: torch.Tensor, method: str = "horn") -> torch.Tensor:
+    """Rotation R with target ≈ R @ source, both centred internally.
+
+    method "horn" (the default, and the fit's): the fixed-iteration
+    quaternion solve; "svd": `torch.linalg.svd` of the cross-covariance,
+    as umeyama.py:122-146."""
+    if method not in ("horn", "svd"):
+        raise ValueError(f"method must be 'horn' or 'svd', got {method!r}")
     sc = (source - _wmean(source, w).unsqueeze(-2)) * w.unsqueeze(-1)
     tc = target - _wmean(target, w).unsqueeze(-2)
+    if method == "svd":
+        return _svd_rotation(tc.transpose(-1, -2) @ sc)
     return _horn_rotation(_cross_cov(tc, sc))
 
 
@@ -143,9 +164,10 @@ def pairwise_scale_both(source, target, w, max_exact: int = 256):
 
 
 def transform_pts(source: torch.Tensor, target: torch.Tensor,
-                  w: torch.Tensor):
-    """(R, s, t) with target ≈ s·R@source + t (d3_utils.py:223-234)."""
-    R = kabsch_rotation(source, target, w)
+                  w: torch.Tensor, method: str = "horn"):
+    """(R, s, t) with target ≈ s·R@source + t (d3_utils.py:223-234); the
+    rotation by `kabsch_rotation(method=)`."""
+    R = kabsch_rotation(source, target, w, method=method)
     s = pairwise_scale(source, target, w)
     mu_s = _wmean(source, w)
     t = _wmean(target, w) - s.unsqueeze(-1) * (R @ mu_s.unsqueeze(-1)

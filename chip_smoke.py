@@ -176,6 +176,28 @@ is non-zero):
    writes a PNG (or raises naming matplotlib), `profiling.trace` of one
    served batch names each launch ("kernel:<entry>"), and
    `device_memory_stats` gives the peak bytes.
+15. The accuracy tools (`articulated_pose_tpu_torch.ab`), each through
+   its own functions, each printing its table: (a) `ransac_strength`
+   on 8 noisy-oracle frames (N=2048), the --r4 control and two arms,
+   every score finite, the control's rotation below 5 deg; then 150
+   fused synthetic steps of eyeglasses (seed 0, B=32, N=1024, f32; 1
+   fps2, 2 ball_query_group and 2 three_nn launches a step), saved as a
+   work dir, the first step's kernel calls held against their plain
+   versions on a copy of the init (`held_to_plain`); (b) `packed_eval` in f32 and in bf16 on it, 32 frames at
+   B=16: the exact arm launches fps2, ball_query_group and three_nn,
+   the packed arm ball_query_group_packed in place of the exact query,
+   per forward (the guard's and one a batch), every metric finite and
+   the seg guard at 0.40; each arm's kernel calls also held against
+   their plain versions on one batch (`held_to_plain`); (c)
+   `bf16_grads` at B=4, N=1024, depth 4, every policy arm and both
+   parameter controls (one forward each), backbone/sa1/mlp/conv0
+   reported, every overall cosine finite, then the f32 arm, its
+   controls and the bf16 arm once more with each kernel call held;
+   (d) `pose_knobs_trained` on the control and refit=3, `--time-iters
+   3` (ms a batch from CUDA events), one forward of 32 frames, then the
+   forward and the control once more with each kernel call held.  Every
+   kernel that a counted run of the phase launched is held at that
+   run's shapes, or the phase fails.
 
     python3 chip_smoke.py --soak WORLDS STEPS
 
@@ -185,7 +207,7 @@ world and, for a step where the heatmap's signs differed, the same step
 held without them imposed.
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-14 runs with the launch counts set to 0 just before it and read
+phases 4-15 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -196,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import io
 import json
 import pathlib
 import subprocess
@@ -3162,6 +3185,225 @@ def reference_assets(dev):
     return paths
 
 
+# --------------------------------------------------------------- phase 15
+AB_CATEGORY = "eyeglasses"
+AB_SEED = 0                         # packed_eval's and bf16_grads' generator
+AB_STEPS = 150
+AB_B = 32
+AB_N = 1024
+AB_FRAMES = 32
+AB_PACKED_B = 16                    # ab_packed_eval.py's default batch
+AB_GRAD_B = 4
+AB_MIN_SEG = 0.40                   # chance is 1/3 (150 steps read 0.51)
+AB_ORACLE_ROT = 5.0                 # degrees, the oracle control's mean
+
+
+def ab_call(label: str, fn, *args, **kwargs):
+    """fn(...) with the launch counts set to 0 just before; returns
+    (its result, the launch counts, host seconds)."""
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    counts = launch_counts()
+    seconds = time.perf_counter() - t0
+    log(f"[ab {label}] {seconds:.1f} s; launches {counts}")
+    return out, counts, seconds
+
+
+def ab_forwards(label: str, counts, forwards: int, packed: bool = False):
+    """Raise unless `counts` are `forwards` forwards' launches: 1 fps2,
+    2 ball queries (exact or packed) and 2 three_nn each."""
+    bq = "ball_query_group_packed" if packed else "ball_query_group"
+    want = expected_launches(fps2=forwards, three_nn=2 * forwards,
+                             **{bq: 2 * forwards})
+    if counts != want:
+        raise AssertionError(f"[ab {label}] launches {counts}, expected "
+                             f"{want} ({forwards} forwards)")
+
+
+def ab_oracle() -> None:
+    """Phase 15(a): ab.ransac_strength, 8 frames, the --r4 control and two
+    arms, on the card."""
+    from articulated_pose_tpu_torch.ab import ransac_strength
+
+    args = ransac_strength.parser().parse_args(
+        ["--frames", "8", "--r4", "--arms", "refit=4,niter_part=64"])
+    rows, counts, _ = ab_call("ransac_strength", ransac_strength.run, args)
+    tags = [t for t, _ in rows]
+    if tags != ["PROD 128/64 refit6 (control)", "R4 refit=4",
+                "R4 niter_part=64"]:
+        raise AssertionError(f"[ab ransac_strength] arms {tags}")
+    for tag, s in rows:
+        if not (np.isfinite(list(s.values())).all() and s["n_parts"] == 24):
+            raise AssertionError(f"[ab ransac_strength] {tag}: {s}")
+    if not rows[0][1]["rot_mean"] < AB_ORACLE_ROT:
+        raise AssertionError(f"[ab ransac_strength] control rot "
+                             f"{rows[0][1]['rot_mean']} >= {AB_ORACLE_ROT}")
+
+
+def ab_packed(work: str, dev) -> dict:
+    """Phase 15(b): ab.packed_eval in f32 and bf16 on the phase's model,
+    32 frames, B=16; each arm's kernel calls held to their plain
+    versions once, on one batch (outside the counted runs)."""
+    import torch
+
+    from articulated_pose_tpu_torch.ab import packed_eval
+    from articulated_pose_tpu_torch.ab.restore_eval import restore_state
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.train.state import TrainState
+
+    paths = {}
+    jt = ("revolute", "revolute")
+    for dtype in ("float32", "bfloat16"):
+        argv = ["--work", work, "--points", str(AB_N), "--test-frames",
+                str(AB_FRAMES), "--batch", str(AB_PACKED_B), "--dtype", dtype,
+                "--min-seg-acc", str(AB_MIN_SEG)]
+        args = packed_eval.parser().parse_args(argv)
+        res, counts, _ = ab_call(f"packed_eval {dtype}", packed_eval.run,
+                                 args)
+        # per arm: the guard's forward, then one a batch
+        forwards = 1 + AB_FRAMES // AB_PACKED_B
+        want = expected_launches(
+            fps2=2 * forwards, three_nn=4 * forwards,
+            ball_query_group=2 * forwards,
+            ball_query_group_packed=2 * forwards)
+        if counts != want:
+            raise AssertionError(f"[ab packed_eval {dtype}] launches "
+                                 f"{counts}, expected {want}")
+        paths[f"ab packed_eval {dtype}"] = counts
+        for arm, m in res.items():
+            if not np.isfinite(list(m.values())).all():
+                raise AssertionError(f"[ab packed_eval {dtype}] {arm}: {m}")
+        one = packed_eval.parser().parse_args(
+            argv[:4] + ["--test-frames", str(AB_PACKED_B)] + argv[6:])
+        for arm, packed in packed_eval.ARMS:
+            model = build_model(packed_eval.arm_config(one, packed),
+                                torch.Generator().manual_seed(0), device=dev)
+            state, _ = restore_state(
+                TrainState(model, packed_eval.arm_config(one, packed)), work)
+            label = f"ab packed_eval {dtype} {arm}"
+            with held_to_plain(label) as held:
+                packed_eval.run_eval(state, one, jt)
+            bq = ("ball_query_group_packed" if packed
+                  else "ball_query_group")
+            log_held(label, held, {"fps2": 1, bq: 1, "three_nn": 1})
+    return paths
+
+
+def ab_grads(work: str) -> dict:
+    """Phase 15(c): ab.bf16_grads at B=4, N=1024, depth 4, every arm, on
+    the phase's model."""
+    from articulated_pose_tpu_torch.ab import bf16_grads
+
+    args = bf16_grads.parser().parse_args(
+        ["--work", work, "--batch", str(AB_GRAD_B), "--points", str(AB_N),
+         "--depth", "4"])
+    out, counts, _ = ab_call("bf16_grads", bf16_grads.run, args)
+    ab_forwards("bf16_grads", counts,
+                len(bf16_grads.ARMS) + len(bf16_grads.PARAM_ARMS))
+    # the same batch through the f32 arm, its controls and the bf16 arm,
+    # each kernel call held (the table goes to a buffer)
+    with held_to_plain("ab bf16_grads") as held, \
+            contextlib.redirect_stdout(io.StringIO()):
+        bf16_grads.run(args, arms={k: bf16_grads.ARMS[k]
+                                   for k in ("f32", "bf16")})
+    log_held("ab bf16_grads", held, counts)
+    if "backbone/sa1/mlp/conv0" not in out["modules"]:
+        raise AssertionError("[ab bf16_grads] no backbone/sa1/mlp/conv0")
+    arms = [a for a in bf16_grads.ARMS if a != "f32"] + list(
+        bf16_grads.PARAM_ARMS)
+    cos = [out[f"overall_cosine_{a}"] for a in arms]
+    if not (np.isfinite(cos).all() and all(-1 - 1e-9 <= c <= 1 + 1e-9
+                                           for c in cos)):
+        raise AssertionError(f"[ab bf16_grads] overall cosines {cos}")
+    return {"ab bf16_grads": counts}
+
+
+def ab_knobs(work: str) -> dict:
+    """Phase 15(d): ab.pose_knobs_trained on the phase's model, two arms,
+    --time-iters 3, 32 frames (one batch)."""
+    from articulated_pose_tpu_torch.ab import pose_knobs_trained
+
+    args = pose_knobs_trained.parser().parse_args(
+        ["--work", work, "--category", AB_CATEGORY, "--seed", str(AB_SEED),
+         "--test-frames", str(AB_FRAMES), "--batch", str(AB_B),
+         "--time-iters", "3", "--arms", "control,refit=3",
+         "--min-seg-acc", str(AB_MIN_SEG)])
+    out, counts, _ = ab_call("pose_knobs_trained", pose_knobs_trained.run,
+                             args)
+    ab_forwards("pose_knobs_trained", counts, 1)
+    # the same prediction forward and the control's fit, each kernel
+    # call held
+    held_args = pose_knobs_trained.parser().parse_args(
+        ["--work", work, "--category", AB_CATEGORY, "--seed", str(AB_SEED),
+         "--test-frames", str(AB_FRAMES), "--batch", str(AB_B),
+         "--arms", "control", "--min-seg-acc", str(AB_MIN_SEG)])
+    with held_to_plain("ab pose_knobs_trained") as held, \
+            contextlib.redirect_stdout(io.StringIO()):
+        pose_knobs_trained.run(held_args)
+    log_held("ab pose_knobs_trained", held, counts)
+    rows = out["arms"]
+    if len(rows) != 2 or not all(r["ms"] > 0 and np.isfinite(
+            [r["rot"], r["trans"], r["acc_5deg5cm"]]).all() for r in rows):
+        raise AssertionError(f"[ab pose_knobs_trained] arms {rows}")
+    return {"ab pose_knobs_trained": counts}
+
+
+def accuracy_tools(dev):
+    """Phase 15: the accuracy tools of `articulated_pose_tpu_torch.ab` on
+    the card.  Returns each sub-path's launch counts."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from articulated_pose_tpu_torch.ab import pose_knobs_trained
+    from articulated_pose_tpu_torch.data.device_synthetic import (
+        DeviceSynthetic, make_fused_synthetic_train_step)
+    from articulated_pose_tpu_torch.e2e import DATA_KEY
+    from articulated_pose_tpu_torch.data.synthetic import \
+        SyntheticArticulated
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.registry import get_category
+    from articulated_pose_tpu_torch.train.state import TrainState
+    from articulated_pose_tpu_torch.train.trainer import Checkpointer
+
+    ab_oracle()
+    cat = get_category(AB_CATEGORY)
+    args = pose_knobs_trained.parser().parse_args(
+        ["--points", str(AB_N), "--batch", str(AB_B)])
+    cfg = pose_knobs_trained.train_config(args, cat.n_parts)
+    state = TrainState(build_model(cfg, torch.Generator().manual_seed(0),
+                                   device=dev), cfg)
+    # the tools' generators take SyntheticArticulated's cameras (uniform
+    # SO(3)), as the JAX scripts' do, so the phase trains on them too
+    dg = DeviceSynthetic(
+        SyntheticArticulated(n_parts=cat.n_parts, points_per_part=500,
+                             joint_types=tuple(cat.joint_types),
+                             seed=AB_SEED), num_points=AB_N, device=dev)
+    # the first fused step on a copy of the init, each kernel call held
+    probe = TrainState(copy.deepcopy(state.model), cfg)
+    with held_to_plain("ab train") as held:
+        make_fused_synthetic_train_step(cfg, dg, AB_B, seed=DATA_KEY)(probe,
+                                                                      0)
+    secs, counts, _ = ab_call("train", pose_knobs_trained.train_in_process,
+                              state, dg, AB_STEPS, AB_B)
+    ab_forwards("train", counts, AB_STEPS)
+    log_held("ab train", held, counts)
+    paths = {"ab train": counts}
+    log(f"[ab train] {AB_CATEGORY} seed {AB_SEED}, {AB_STEPS} fused steps "
+        f"B={AB_B} N={AB_N} f32 in {secs:.1f} s")
+    with tempfile.TemporaryDirectory() as work:
+        Checkpointer(f"{work}/model").save(AB_STEPS, state)
+        paths.update(ab_packed(work, dev))
+        paths.update(ab_grads(work))
+        paths.update(ab_knobs(work))
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3242,6 +3484,8 @@ def main() -> int:
         paths.update(mesh_path(dev))
     with phase("14 reference assets"):
         paths.update(reference_assets(dev))
+    with phase("15 accuracy tools"):
+        paths.update(accuracy_tools(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:
