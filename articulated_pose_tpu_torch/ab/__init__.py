@@ -1,10 +1,11 @@
-"""The accuracy-decision tools: counterparts of the JAX package's
-`scripts/ab_*.py` and `scripts/diag_*.py` that measure accuracy, not
-time.  Their readings chose the configuration that the package serves
-and trains.  Each is runnable as `python -m
+"""The A/B tools: counterparts of the JAX package's `scripts/ab_*.py`
+and `scripts/diag_*.py`.  The accuracy tools' readings chose the
+configuration that the package serves and trains; the timing A/Bs time
+bench.py's program on the card.  Each is runnable as `python -m
 articulated_pose_tpu_torch.ab.<name>` with the JAX script's flags,
 defaults, arms, tags and printed table, plus `--device` (the card by
-default; without one it raises unless given `cpu`):
+default; without one it raises unless given `cpu`).  The accuracy
+tools:
 
 - `oracle`: the noisy-oracle predictions (GT labels with NOCS jitter,
   segmentation flips and axis jitter; NumPy, bit-equal to
@@ -28,4 +29,13 @@ restore_state`).  Like the JAX scripts, the tools draw their frames from
 `SyntheticArticulated`'s default cameras (uniform SO(3)): a checkpoint
 they read should have been trained on them (`e2e.py --full-rotation`,
 or `pose_knobs_trained --train-steps`).
+
+The timing A/Bs (their device columns "not measured" on the CPU):
+
+- `overlap`: forward only, fit only, forward -> fit in series, and
+  forward(i) beside fit(i - 1) on a second CUDA stream (ab_overlap.py);
+- `batch`: forward + fit at several batch sizes in one process
+  (ab_batch.py);
+- `batch_joints`: the per-joint loop against `batch_joints=True`
+  (ab_batch_joints.py).
 """

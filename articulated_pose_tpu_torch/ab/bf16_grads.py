@@ -39,7 +39,7 @@ import torch
 
 from articulated_pose_tpu_torch import convert
 from articulated_pose_tpu_torch import losses as losses_lib
-from articulated_pose_tpu_torch.ab.common import resolve_device
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.ab.restore_eval import (restore_state,
                                                         tree_leaves)
 from articulated_pose_tpu_torch.config import NetworkConfig

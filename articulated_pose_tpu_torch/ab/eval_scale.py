@@ -27,7 +27,7 @@ import time
 from typing import Dict, Optional, Sequence
 
 from articulated_pose_tpu_torch import main as cli
-from articulated_pose_tpu_torch.ab.common import resolve_device
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
 
 TOP = 25                # hotspots printed

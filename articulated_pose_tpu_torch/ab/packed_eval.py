@@ -32,8 +32,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from articulated_pose_tpu_torch import e2e
-from articulated_pose_tpu_torch.ab.common import (resolve_device, seg_acc,
-                                                   seg_guard)
+from articulated_pose_tpu_torch.ab.common import seg_acc, seg_guard
 from articulated_pose_tpu_torch.ab.restore_eval import restore_state
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.data.device_synthetic import DeviceSynthetic
@@ -41,6 +40,7 @@ from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
 from articulated_pose_tpu_torch.models.ancsh import build_model
 from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
 from articulated_pose_tpu_torch.pose.pipeline import PoseFitConfig
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.train.state import TrainState, eval_step
 
 GEN_SEED = 0            # the frames' generator (ab_packed_eval.py:40-41)

@@ -31,8 +31,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from articulated_pose_tpu_torch.ab.common import (resolve_device, seg_acc,
-                                                   seg_guard)
+from articulated_pose_tpu_torch.ab.common import seg_acc, seg_guard
 from articulated_pose_tpu_torch.ab.restore_eval import restore_state
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.data.device_synthetic import (
@@ -45,6 +44,7 @@ from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
 from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws,
                                                       PoseFitConfig,
                                                       fit_frame_batch)
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.registry import get_category
 from articulated_pose_tpu_torch.train.state import TrainState, eval_step
 

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from articulated_pose_tpu_torch.ab import oracle
-from articulated_pose_tpu_torch.ab.common import resolve_device
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws,
                                                       PoseFitConfig,
                                                       fit_frame_batch)

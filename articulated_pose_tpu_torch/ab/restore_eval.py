@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from articulated_pose_tpu_torch import convert
-from articulated_pose_tpu_torch.ab.common import resolve_device, seg_acc
+from articulated_pose_tpu_torch.ab.common import seg_acc
+from articulated_pose_tpu_torch.programs import resolve_device
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.data.device_synthetic import DeviceSynthetic
 from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated

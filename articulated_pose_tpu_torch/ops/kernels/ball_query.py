@@ -44,7 +44,8 @@ import torch
 
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
-                                                          ptr, require_cuda,
+                                                          counted, ptr,
+                                                          require_cuda,
                                                           stream_of)
 
 # the streaming tier carries indices as f32 (ball_query_stream.py:156-163)
@@ -224,6 +225,7 @@ def ball_query_group_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return grouped, cnt, (idx if emit_idx else None)
 
 
+@counted("ball_query_group")
 def ball_query_group(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor, emit_idx: bool = True):
     """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (grouped_xyz (B, M, S, 3)
@@ -241,6 +243,7 @@ def ball_query_point_grouped_plain(radius: float, nsample: int,
     return idx, cnt, grouped
 
 
+@counted("ball_query_point_grouped")
 def ball_query_point_grouped(radius: float, nsample: int, xyz: torch.Tensor,
                              new_xyz: torch.Tensor):
     """B5g: xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
@@ -263,6 +266,7 @@ def ball_query_group_packed_plain(radius: float, nsample: int,
     return grouped, cnt, (idx if emit_idx else None)
 
 
+@counted("ball_query_group_packed")
 def ball_query_group_packed(radius: float, nsample: int, xyz: torch.Tensor,
                             new_xyz: torch.Tensor, emit_idx: bool = True):
     """As `ball_query_group`, with each grouped point taken from the
@@ -279,6 +283,7 @@ def ball_query_group_packed(radius: float, nsample: int, xyz: torch.Tensor,
 ball_query_idx_plain = core.query_ball_point
 
 
+@counted("ball_query_idx")
 def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
                    new_xyz: torch.Tensor):
     """xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
@@ -297,6 +302,7 @@ def ball_query_idx(radius: float, nsample: int, xyz: torch.Tensor,
 ball_query_point_plain = core.query_ball_point
 
 
+@counted("ball_query_point")
 def ball_query_point(radius: float, nsample: int, xyz: torch.Tensor,
                      new_xyz: torch.Tensor):
     """B5: xyz (B, N, 3), new_xyz (B, M, 3) f32 -> (idx (B, M, S) i32,
@@ -311,6 +317,7 @@ def ball_query_point(radius: float, nsample: int, xyz: torch.Tensor,
 ball_query_group_bucket_plain = core.query_ball_group_bucket_plain
 
 
+@counted("ball_query_group_bucket")
 def ball_query_group_bucket(radius: float, nsample: int, xyz: torch.Tensor,
                             new_xyz: torch.Tensor, emit_idx: bool = True):
     """The bucket-sampled tier: xyz (B, N, 3), new_xyz (B, M, 3) f32 ->

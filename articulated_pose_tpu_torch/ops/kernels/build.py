@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -138,6 +139,27 @@ class CudaKernel:
         """What ptxas reported (registers, shared memory, spills)."""
         self.lib()
         return self._path.with_suffix(".log").read_text()
+
+
+# the work counters (`roofline.Counter`) counting now, innermost last; an
+# entry costs one truth test of this list while none is
+COUNTERS: list = []
+
+
+def counted(name: str):
+    """Decorator of the kernel entry `name`: under a work counter the call
+    goes through `counter.kernel_call(name, fn, args, kwargs)`, which
+    counts the kernel's work from its shapes and leaves out whatever ran
+    inside (the plain version's ops on the CPU, the wrapper's
+    allocations on the card), so both devices count the same."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if COUNTERS:
+                return COUNTERS[-1].kernel_call(name, fn, args, kwargs)
+            return fn(*args, **kwargs)
+        return entry
+    return wrap
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

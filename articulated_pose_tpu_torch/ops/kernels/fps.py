@@ -23,7 +23,8 @@ import torch
 
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
-                                                          ptr, require_cuda,
+                                                          counted, ptr,
+                                                          require_cuda,
                                                           stream_of)
 
 # csrc/fps.cu's variants, in its FPS_VARIANTS order: name -> (warps a CTA,
@@ -181,6 +182,8 @@ def step_floor(B: int, variant: str, cluster: int, seed: int = 1) -> float:
                                          cluster))
     return (many - one) * 1e3 / (picks - 1)
 
+
+@counted("fps2")
 def fps2(xyz: torch.Tensor, np1: int, np2: int):
     """xyz (B, N, 3) f32 -> (idx1 (B, np1) i32, xyz1 (B, np1, 3),
     idx2 (B, np2) i32 LOCAL to the np1 subset, xyz2 (B, np2, 3)).  np1
@@ -196,6 +199,7 @@ def fps2(xyz: torch.Tensor, np1: int, np2: int):
     return launch(KERNEL, xyz, np1, np2, *fps_plan(B, N, np1))
 
 
+@counted("fps")
 def fps(xyz: torch.Tensor, npoint: int):
     """xyz (B, N, 3) f32 -> (idx (B, npoint) i32, new_xyz (B, npoint, 3));
     npoint may exceed N (see `fps2`)."""

@@ -27,7 +27,8 @@ import torch
 
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels.build import (CudaKernel, check_rc,
-                                                          ptr, require_cuda,
+                                                          counted, ptr,
+                                                          require_cuda,
                                                           stream_of)
 
 # csrc/three_nn.cu's variants, in its NN_VARIANTS order: name -> (G
@@ -139,6 +140,7 @@ def launch(kernel: CudaKernel, xyz1: torch.Tensor, xyz2: torch.Tensor,
     return dist, idx
 
 
+@counted("three_nn")
 def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """xyz1 (B, N, 3), xyz2 (B, M, 3) f32 -> (dist (B, N, 3) squared,
     ascending, idx (B, N, 3) i32), ties to the lowest index."""
@@ -147,6 +149,7 @@ def three_nn(xyz1: torch.Tensor, xyz2: torch.Tensor):
     return launch(KERNEL, xyz1, xyz2)
 
 
+@counted("three_nn_stream")
 def three_nn_stream(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """As `three_nn`, for candidate sets of any size M.  The TPU
     wrapper's `block_m` is not taken: it sized the VMEM tile of
@@ -158,6 +161,7 @@ def three_nn_stream(xyz1: torch.Tensor, xyz2: torch.Tensor):
     return launch(STREAM_KERNEL, xyz1, xyz2)
 
 
+@counted("three_nn_packed")
 def three_nn_packed(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """xyz1 (B, N, 3), xyz2 (B, M, 3) f32, M <= 65536 -> (dist (B, N, 3)
     d² truncated to its top 16 bits, idx (B, N, 3) i32), ordered by the

@@ -74,7 +74,7 @@ STAGES = ("forward", "fps1", "fps2", "bq1", "bq2", "group", "threenn", "pose",
 N_PARTS = 3
 
 
-def _stage_fns(B: int, N: int, spec: BackboneSpec, want: Sequence[str],
+def stage_fns(B: int, N: int, spec: BackboneSpec, want: Sequence[str],
                dev: torch.device) -> Dict[str, tuple]:
     """stage -> (label, fn) for the stages in `want`; the inputs come from
     numpy seed 0 in the JAX script's order."""
@@ -191,22 +191,29 @@ def run(batch: int = 64, points: int = 2048, iters: int = 16,
           flush=True)
     rows = []
     with torch.inference_mode():
-        fns = _stage_fns(batch, points, spec, stages, dev)
+        fns = stage_fns(batch, points, spec, stages, dev)
         for name in stages:
             label, fn = fns[name]
-            wall, busy, ops, launches = _measure(fn, iters, dev)
-            idle = None if busy is None else max(0.0, 1.0 - busy / wall)
-            rows.append(dict(stage=name, label=label, wall_ms=wall,
-                             device_ms=busy, device_ops=ops, idle_share=idle,
-                             clouds_per_s=batch / wall * 1e3,
-                             launches=launches))
-            dev_cols = ("not measured".rjust(26) if busy is None else
-                        f"{busy:10.4f} {ops:8d} {idle:6.3f}")
-            print(f"{label:<34s} {wall:10.4f} {dev_cols} "
-                  f"{batch / wall * 1e3:10.1f}  "
-                  + (", ".join(f"{k} {v:g}" for k, v in launches.items())
-                     or "-"), flush=True)
+            rows.append(measure_row(name, label, fn, iters, batch, dev))
     return rows
+
+
+def measure_row(stage: str, label: str, fn: Callable[[], object],
+                iters: int, batch: int, dev: torch.device,
+                width: int = 34) -> dict:
+    """Measure one stage (`_measure`), print its row of the table, and
+    return the row."""
+    wall, busy, ops, launches = _measure(fn, iters, dev)
+    idle = None if busy is None else max(0.0, 1.0 - busy / wall)
+    dev_cols = ("not measured".rjust(26) if busy is None else
+                f"{busy:10.4f} {ops:8d} {idle:6.3f}")
+    print(f"{label:<{width}s} {wall:10.4f} {dev_cols} "
+          f"{batch / wall * 1e3:10.1f}  "
+          + (", ".join(f"{k} {v:g}" for k, v in launches.items()) or "-"),
+          flush=True)
+    return dict(stage=stage, label=label, wall_ms=wall, device_ms=busy,
+                device_ops=ops, idle_share=idle,
+                clouds_per_s=batch / wall * 1e3, launches=launches)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

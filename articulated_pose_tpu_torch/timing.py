@@ -4,7 +4,10 @@ card's name and power limit, and the command line of the sweep scripts
 (`fps_sweep.py`, `bq_sweep.py`, `nn_sweep.py`) with its A/B runner,
 which times several checkouts in turns.
 
-Every function here needs a CUDA device; none falls back to the host.
+Every function here needs a CUDA device and none falls back to the
+host, but `synchronize` and `card_or_none`, which a timing tool run on
+the CPU (`--device cpu`, the tests) calls, and which then measure
+nothing.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from typing import Callable, Optional, Tuple
 import torch
 
 MAX_SPIN_CYCLES = 1 << 28           # ~0.15-0.25 s of spin at H100 clocks
-# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32
-# outside the tensor cores, and HBM3 bandwidth
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# float32 outside the tensor cores, bf16 / fp16 on them, HBM3 bandwidth
 F32_PEAK_FLOPS = 67e12
+TENSOR_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # device_profile: the uncounted kernels and the pause between a trace's
 # start and its counted calls, the spin kernels marking them (~0.5 us each
@@ -95,8 +99,9 @@ def wall_ms(fn: Callable[[], object], iters: int) -> float:
 def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
     """(device-busy ms, device ops) per call of fn, from torch.profiler
     over `iters` calls: the summed durations and the count of the
-    events it records on the card (kernels, copies, memsets), the count
-    rounded down, so an event the trace lost lowers it.
+    events it records on the card (kernels, copies, memsets;
+    `device_events`), the count rounded down, so an event the trace
+    lost lowers it.
 
     Traces on an H100 have lost the kernels launched in their first
     moments (the first one or two, or all of a short trace), and put
@@ -109,7 +114,6 @@ def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
     A trace that lost a mark is retaken, at most `PROFILE_RETAKES`
     times; then, as when nothing lies between the marks, it raises, so
     a trace that misses the card reads as a fault."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     pad = torch.zeros(1, device="cuda")
@@ -132,9 +136,7 @@ def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
                     fn()
                 torch.cuda._sleep(PROFILE_MARK_CYCLES)
                 torch.cuda.synchronize()
-        dev = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+        dev = device_events(prof.events())
         marks = [i for i, e in enumerate(dev) if "spin" in e.name]
         if len(marks) == 2:
             break
@@ -147,6 +149,20 @@ def device_profile(fn: Callable[[], object], iters: int) -> Tuple[float, int]:
                            "between its marks")
     busy_us = sum(e.time_range.elapsed_us() for e in ops)
     return busy_us / 1e3 / iters, len(ops) // iters
+
+
+def device_events(events) -> list:
+    """The events of a trace that ran on the card (kernels, copies,
+    memsets) in the order they started.  The ranges of user annotations
+    (`CudaKernel.scope()`'s "kernel:<entry>", `record_function`) that
+    the trace also places on the card's timeline are left out: each
+    spans work that is counted already."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("kernel:")),
+                  key=lambda e: e.time_range.start)
 
 
 def roofline_ms(flops: float, nbytes: float) -> Tuple[float, float]:
@@ -162,6 +178,17 @@ def require_card(device: Optional[str] = None) -> torch.device:
     if dev.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} is not an available CUDA device")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the card's queue; nothing on the CPU."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_or_none(dev: torch.device) -> Optional[str]:
+    """`card_line()` on a card; None for a CPU run, which measures none."""
+    return card_line() if dev.type == "cuda" else None
 
 
 def card_line() -> str:

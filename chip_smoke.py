@@ -11,8 +11,9 @@ is non-zero):
    limit), the torch / CUDA / nvcc versions, whether scipy, h5py,
    matplotlib, yaml, pybullet and cv2 import on the host and whether the
    native library (labeling, ball renderer) builds.
-1. Build the CUDA sources from csrc/, one nvcc each, all at once; print
-   each kernel's registers, shared memory and spills (ptxas -v).
+1. Build the CUDA sources from csrc/ (the eleven kernels' three and the
+   card-limits probe's), one nvcc each, all at once; print each
+   kernel's registers, shared memory and spills (ptxas -v).
 2. Hold each of the eleven kernels against its plain PyTorch version at
    the shapes its paths give it: the serving path's (B=16, N=2048), the
    large-cloud path's (B=4, N=32768), the N-level path's (B=8,
@@ -36,8 +37,9 @@ is non-zero):
    time of each, median of 20 CUDA-event-timed calls (`timing.
    cuda_time_ms`; of 5 for the plain versions, which are no yardstick
    and, for FPS, take tens of ms of host time a call); its bound from
-   this run's inputs (`bound` below); for the 3-NN kernels the time of
-   torch.topk(torch.cdist(...), 3) as the nearest library call.
+   this run's inputs (`roofline.py`'s work functions); for the 3-NN
+   kernels the time of torch.topk(torch.cdist(...), 3) as the nearest
+   library call.
 3. Pose oracle: 8 frames of a 3-part object with two revolute joints and
    perfect predictions; the pose fit on the card must recover every
    part's similarity (rotation < 3 deg, scale within 5 %, translation
@@ -198,6 +200,23 @@ is non-zero):
    forward and the control once more with each kernel call held.  Every
    kernel that a counted run of the phase launched is held at that
    run's shapes, or the phase fails.
+16. The roofline and timing tools, each through its own functions at
+   short counts: (a) `probe_card` (5 calls a reading; the FMA kernel of
+   csrc/probe.cu within 1e-5 relative of float64); (b) `roofline` at
+   B=64 (bench.py's program, the fit, FPS, the SA1 ball query, FP1's
+   3-NN, the f32 train step at B=16, N=1024), its kernel counts equal to
+   the launches, and one forward (B=2, N=2048) counting the same on the
+   card and on the CPU, its launches on the card a path of their own,
+   held at B=2; (c) `roofline_session` on phase 8's profile and
+   (a)'s ceilings, every stage's floor at the published peaks at most
+   its device ms; (d) `profile_train_stages` at B=32, N=1024, 2
+   iterations, its five stages in the JAX script's order with their
+   launches; (e) `ab.overlap` (2 iterations; the pipelined fits equal to
+   the serial ones); (f) `ab.batch` at B=64 and 128; (g)
+   `ab.batch_joints` (no kernel; the arms within 1e-5).  Each stage's
+   kernel calls are held against their plain versions once more,
+   outside the counted runs (`held_to_plain`, which also holds the
+   calls that the tools make through the kernel modules).
 
     python3 chip_smoke.py --soak WORLDS STEPS
 
@@ -207,7 +226,7 @@ world and, for a step where the heatmap's signs differed, the same step
 held without them imposed.
 
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-15 runs with the launch counts set to 0 just before it and read
+phases 4-16 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -296,17 +315,6 @@ TRAIN_OWN_ROUTING_BOUND = 0.1
 # between its two reads of a batch (~1 ms)
 PREFETCH_COPY_SPIN = 1 << 26
 PREFETCH_READ_SPIN = 1 << 21
-# FLOPs the work needs, for the bounds: a (query, point) distance is the
-# inner product (3 mul, 2 add), |q|^2 + |p|^2, 2 q.p and the difference,
-# plus the radius test or the clamp; |p|^2 or |q|^2 is 5 once per point;
-# 3-NN adds one compare against its third-best; an FPS step costs 3 sub,
-# 3 mul, 2 add, the running min and the argmax compare per point; the
-# packed tier's quantiser ~30 per point (box, scale, floor, clamp, fma)
-PAIR_FLOPS = 9
-NORM_FLOPS = 5
-NN_PAIR_FLOPS = 10
-FPS_FLOPS = 10
-QUANT_FLOPS = 30
 
 
 @contextlib.contextmanager
@@ -318,13 +326,6 @@ def phase(name: str):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_lines(log_text: str) -> list:
@@ -341,30 +342,6 @@ def ptxas_lines(log_text: str) -> list:
         elif lines and ("registers" in ln or "spill" in ln):
             lines[-1] += "; " + ln.split(":", 1)[-1].strip()
     return lines
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(flops: float, *tensors):
-    """(ms for `flops`, ms for the bytes) of one call at the card's
-    published peaks; `tensors` are the call's inputs and outputs, each
-    read or written once."""
-    from articulated_pose_tpu_torch.timing import roofline_ms
-
-    return roofline_ms(flops, nbytes(*tensors))
-
-
-def scanned_points(idx, cnt, N: int):
-    """Points a first-S ball query has to examine for these inputs: each
-    query's cloud up to its S-th hit, all of it when it has fewer.
-    Returns (the sum over the queries, the largest)."""
-    import torch
-
-    S = idx.shape[-1]
-    n = torch.where(cnt >= S, idx[..., -1].long() + 1, N)
-    return int(n.sum()), int(n.max())
 
 
 def bq_note(pairs: int, most: int, queries: int, plan) -> str:
@@ -427,13 +404,14 @@ def check_equal(name: str, got, want) -> float:
                for g, w in zip(got, want))
 
 
-def fps_reading(kernel_fn, plain_fn, B, picks, flops, plan, outputs):
+def fps_reading(kernel_fn, plain_fn, B, picks, work, plan):
     """Times, bound and step floor of one FPS launch: (times, bounds,
     shape label, log text, µs per pick, floor µs per pick)."""
     from articulated_pose_tpu_torch.ops.kernels.fps import step_floor
+    from articulated_pose_tpu_torch.roofline import bound
 
     t = time_both(kernel_fn, plain_fn)
-    b = bound(flops, *outputs)
+    b = bound(work)
     floor = step_floor(B, *plan)
     us = t[0] * 1e3 / picks
     text = (f"{plan[0]} C={plan[1]}, {us:.4f} us a pick, step floor "
@@ -454,6 +432,7 @@ def compare_fps(clouds):
     """K1 at each (label, cloud): N -> 512 -> 128, as PointNet2Backbone
     calls it.  Returns the JSON entry and each cloud's (xyz1, xyz2)."""
     from articulated_pose_tpu_torch.ops.kernels import fps
+    from articulated_pose_tpu_torch.roofline import fps2_work
 
     err, readings, picks = 0.0, [], {}
     for label, cloud in clouds:
@@ -465,7 +444,7 @@ def compare_fps(clouds):
         t, b, text, us, floor = fps_reading(
             lambda: fps.fps2(cloud, 512, 128),
             lambda: fps.fps2_plain(cloud, 512, 128), B, 512 + 128,
-            B * (511 * N + 127 * 512) * FPS_FLOPS, plan, (cloud, *got))
+            fps2_work(B, N, 512, 128), plan)
         shape = f"B{B} N{N}->512->128"
         log(f"[kernels] fps2 {shape}: indices and coordinates equal; {text}")
         readings.append((t, b, shape, plan, us, floor))
@@ -476,6 +455,7 @@ def compare_fps(clouds):
 def compare_fps_single(cases):
     """B2 at each (cloud, npoint) of its paths.  Returns the JSON entry."""
     from articulated_pose_tpu_torch.ops.kernels import fps
+    from articulated_pose_tpu_torch.roofline import fps_work
 
     err, readings = 0.0, []
     for cloud, npoint in cases:
@@ -486,7 +466,7 @@ def compare_fps_single(cases):
         t, b, text, us, floor = fps_reading(
             lambda: fps.fps(cloud, npoint),
             lambda: fps.fps_plain(cloud, npoint), B, npoint,
-            B * (npoint - 1) * N * FPS_FLOPS, plan, (cloud, *got))
+            fps_work(B, N, npoint), plan)
         shape = f"B{B} N{N}->{npoint}"
         log(f"[kernels] fps {shape}: indices and coordinates equal; {text}")
         readings.append((t, b, shape, plan, us, floor))
@@ -547,17 +527,19 @@ def torch_cloud(rng, B: int, N: int, dev):
 
 
 def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
-                     whole_cloud=False, point_flops=NORM_FLOPS):
+                     whole_cloud=False):
     """A grouped ball query at each (points, queries, radius, emit_idx)
     or (points, queries, radius, emit_idx, nsample) of its path, S=64
     where the case names none: cnt and idx equal, coordinates within
     coord_bound.  The emit_idx=False launch must give the same
     coordinates and counts.  The bound counts the points each query has
     to examine: up to its 64th hit, or the whole cloud (`whole_cloud`,
-    the bucket tier); `point_flops` per point of the cloud.  Each shape
-    also prints its launch plan and, for the first-S tiers, the points
+    the bucket tier), by `roofline.ball_query_work`.  Each shape also
+    prints its launch plan and, for the first-S tiers, the points
     examined per query, mean and max."""
     from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
+    from articulated_pose_tpu_torch.roofline import (ball_query_work, bound,
+                                                     scanned_points)
 
     err, times, shapes, bounds = 0.0, [], [], []
     for pts, q, r, emit, *nsample in cases:
@@ -583,9 +565,7 @@ def compare_grouping(name, kernel_fn, plain_fn, cases, coord_bound,
         else:
             pairs, most = scanned_points(idxp, cntp, N)
             scan = bq_note(pairs, most, B * M, bq_plan(B, N, M, S))
-        bounds.append(bound(pairs * PAIR_FLOPS + B * N * point_flops
-                            + B * M * NORM_FLOPS, pts, q, g, cnt,
-                            idx if emit else None))
+        bounds.append(bound(ball_query_work(name, B, N, M, S, emit, pairs)))
         shape = f"B{B} N{N} M{M} S{S} r{r} emit_idx={emit}"
         log(f"[kernels] {name} {shape}: cnt, idx equal, grouped max abs "
             f"err {e:.3g}; {t[4]}; {bound_note(bounds[-1])} (mean cnt "
@@ -599,6 +579,8 @@ def compare_idx(name, kernel_fn, plain_fn, cases):
     """An idx-only first-S ball query at each (points, queries, radius),
     S=64: idx and cnt equal."""
     from articulated_pose_tpu_torch.ops.kernels.ball_query import bq_plan
+    from articulated_pose_tpu_torch.roofline import (ball_query_work, bound,
+                                                     scanned_points)
 
     err, times, shapes, bounds = 0.0, [], [], []
     for pts, q, r in cases:
@@ -610,8 +592,7 @@ def compare_idx(name, kernel_fn, plain_fn, cases):
         B, N = pts.shape[:2]
         M = q.shape[1]
         pairs, most = scanned_points(idxp, cntp, N)
-        bounds.append(bound(pairs * PAIR_FLOPS + (B * N + B * M) * NORM_FLOPS,
-                            pts, q, idx, cnt))
+        bounds.append(bound(ball_query_work(name, B, N, M, 64, True, pairs)))
         shape = f"B{B} N{N} M{M} S64 r{r}"
         log(f"[kernels] {name} {shape}: idx, cnt equal; {t[4]}; "
             f"{bound_note(bounds[-1])} (mean cnt "
@@ -630,11 +611,10 @@ def nn_library(a, b):
     return torch.topk(torch.cdist(a, b), 3, dim=-1, largest=False)
 
 
-def nn_bound(a, b, *outputs):
-    B, N, _ = a.shape
-    M = b.shape[1]
-    return bound(B * N * M * NN_PAIR_FLOPS + B * (N + M) * NORM_FLOPS, a, b,
-                 *outputs)
+def nn_bound(a, b):
+    from articulated_pose_tpu_torch.roofline import bound, three_nn_work
+
+    return bound(three_nn_work(a.shape[0], a.shape[1], b.shape[1]))
 
 
 def nn_note(a, b, packed=False) -> str:
@@ -659,7 +639,7 @@ def compare_nn(name, kernel_fn, plain_fn, cases, rel_bound):
         err = max(err, (d - dp).abs().max().item())
         t = time_both(lambda: kernel_fn(a, b), lambda: plain_fn(a, b),
                       lambda: nn_library(a, b))
-        bounds.append(nn_bound(a, b, d, i))
+        bounds.append(nn_bound(a, b))
         shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
         log(f"[kernels] {name} {shape}: idx equal, dist max rel err "
             f"{rel:.3g}; {t[4]}; {bound_note(bounds[-1])}; {nn_note(a, b)}")
@@ -695,7 +675,7 @@ def compare_nn_packed(a, b):
     t = time_both(lambda: three_nn.three_nn_packed(a, b),
                   lambda: three_nn.three_nn_packed_plain(a, b),
                   lambda: nn_library(a, b))
-    bounds = [nn_bound(a, b, d, i)]
+    bounds = [nn_bound(a, b)]
     shape = f"B{a.shape[0]} N{a.shape[1]} M{b.shape[1]}"
     log(f"[kernels] three_nn_packed {shape}: idx equal, dist equal but for "
         f"{n_off} of {d.numel()} entries one key quantum off; {t[4]}; "
@@ -769,8 +749,7 @@ def compare_kernels(dev):
                        (jxyz1, jxyz2, 0.4, True, 64)), 0.0)
     results["ball_query_group_packed"] = compare_grouping(
         "ball_query_group_packed", ball_query.ball_query_group_packed,
-        ball_query.ball_query_group_packed_plain, serve_cases, 0.0,
-        point_flops=NORM_FLOPS + QUANT_FLOPS)
+        ball_query.ball_query_group_packed_plain, serve_cases, 0.0)
 
     # B2: the serving cloud's first level, the N-level path's chain
     # 8192 -> 1024 -> 256 -> 64 -> 16, each level on the last one's
@@ -1313,9 +1292,9 @@ def nlevel_path(dev):
 
 # ------------------------------------------------------------ phases 8-9
 def profile_path(dev):
-    """Phase 8: the stage profiler over every stage; returns its counts.
-    Each stage's device ops a call must cover the port's kernels it
-    launched a call."""
+    """Phase 8: the stage profiler over every stage; returns its counts
+    and its rows.  Each stage's device ops a call must cover the port's
+    kernels it launched a call."""
     from articulated_pose_tpu_torch import profile_stages
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
@@ -1342,7 +1321,7 @@ def profile_path(dev):
                                  f"{per_call[stage]}, expected {launches}")
     log(f"[profile] B={PROFILE_B} N={N_POINTS}, {PROFILE_ITERS} iterations "
         f"per stage; launches {counts}")
-    return counts
+    return counts, rows
 
 
 def kernel_entries(entries):
@@ -2263,20 +2242,21 @@ def cli_path(dev):
 
 
 # --------------------------------------------------------------- phase 13
-# the models' kernels (models/pointnet2.py's names) and their plain
-# versions, as phase 13's paths call them
+# the kernels that the models (models/pointnet2.py's names) and the
+# timing tools call, as phase 13-16's paths call them
 HELD_KERNELS = ("fps", "fps2", "ball_query_group", "ball_query_group_packed",
-                "three_nn")
+                "three_nn", "ball_query_point")
 
 
 @contextlib.contextmanager
 def held_to_plain(label: str):
-    """Within the block, each call the models make of a kernel of
-    HELD_KERNELS also runs the kernel's plain version on the same inputs
-    and raises unless they agree: 3-NN's indices equal and its distances
-    within 1e-6 relative (phase 2's bound), every other output equal.
-    Yields {kernel: the shapes held}.  Launches made in the block belong
-    to no path: run it outside a path's counted run."""
+    """Within the block, each call of a kernel of HELD_KERNELS, by the
+    models or through its module (`fps.fps(...)`, as `profile_stages` and
+    `roofline` call them), also runs the kernel's plain version on the
+    same inputs and raises unless they agree: 3-NN's indices equal and
+    its distances within 1e-6 relative (phase 2's bound), every other
+    output equal.  Yields {kernel: the shapes held}.  Launches made in
+    the block belong to no path: run it outside a path's counted run."""
     import torch
 
     from articulated_pose_tpu_torch.models import pointnet2
@@ -2287,7 +2267,8 @@ def held_to_plain(label: str):
              "ball_query_group": ball_query.ball_query_group_plain,
              "ball_query_group_packed":
                  ball_query.ball_query_group_packed_plain,
-             "three_nn": three_nn.three_nn_plain}
+             "three_nn": three_nn.three_nn_plain,
+             "ball_query_point": ball_query.ball_query_point_plain}
     held = {}
 
     def checked(name, kernel):
@@ -2313,14 +2294,16 @@ def held_to_plain(label: str):
             return got
         return call
 
-    kept = {name: getattr(pointnet2, name) for name in HELD_KERNELS}
-    for name, fn in kept.items():
-        setattr(pointnet2, name, checked(name, fn))
+    kept = {(mod, name): getattr(mod, name)
+            for mod in (pointnet2, fps, ball_query, three_nn)
+            for name in HELD_KERNELS if hasattr(mod, name)}
+    for (mod, name), fn in kept.items():
+        setattr(mod, name, checked(name, fn))
     try:
         yield held
     finally:
-        for name, fn in kept.items():
-            setattr(pointnet2, name, fn)
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
 
 
 def log_held(label: str, held, counts) -> None:
@@ -2967,6 +2950,7 @@ def reference_checkpoint(dev, tmp: pathlib.Path):
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
     from articulated_pose_tpu_torch.serving import PosePredictor
+    from articulated_pose_tpu_torch.timing import card_line
     from articulated_pose_tpu_torch.utils import (ref_forward, tf_bundle,
                                                   tf_ckpt)
     from articulated_pose_tpu_torch.utils.profiling import StepTimer
@@ -3198,7 +3182,7 @@ AB_MIN_SEG = 0.40                   # chance is 1/3 (150 steps read 0.51)
 AB_ORACLE_ROT = 5.0                 # degrees, the oracle control's mean
 
 
-def ab_call(label: str, fn, *args, **kwargs):
+def path_call(label: str, fn, *args, **kwargs):
     """fn(...) with the launch counts set to 0 just before; returns
     (its result, the launch counts, host seconds)."""
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
@@ -3209,7 +3193,7 @@ def ab_call(label: str, fn, *args, **kwargs):
     out = fn(*args, **kwargs)
     counts = launch_counts()
     seconds = time.perf_counter() - t0
-    log(f"[ab {label}] {seconds:.1f} s; launches {counts}")
+    log(f"[{label}] {seconds:.1f} s; launches {counts}")
     return out, counts, seconds
 
 
@@ -3231,7 +3215,8 @@ def ab_oracle() -> None:
 
     args = ransac_strength.parser().parse_args(
         ["--frames", "8", "--r4", "--arms", "refit=4,niter_part=64"])
-    rows, counts, _ = ab_call("ransac_strength", ransac_strength.run, args)
+    rows, counts, _ = path_call("ab ransac_strength", ransac_strength.run,
+                                args)
     tags = [t for t, _ in rows]
     if tags != ["PROD 128/64 refit6 (control)", "R4 refit=4",
                 "R4 niter_part=64"]:
@@ -3262,8 +3247,8 @@ def ab_packed(work: str, dev) -> dict:
                 str(AB_FRAMES), "--batch", str(AB_PACKED_B), "--dtype", dtype,
                 "--min-seg-acc", str(AB_MIN_SEG)]
         args = packed_eval.parser().parse_args(argv)
-        res, counts, _ = ab_call(f"packed_eval {dtype}", packed_eval.run,
-                                 args)
+        res, counts, _ = path_call(f"ab packed_eval {dtype}",
+                                   packed_eval.run, args)
         # per arm: the guard's forward, then one a batch
         forwards = 1 + AB_FRAMES // AB_PACKED_B
         want = expected_launches(
@@ -3301,7 +3286,7 @@ def ab_grads(work: str) -> dict:
     args = bf16_grads.parser().parse_args(
         ["--work", work, "--batch", str(AB_GRAD_B), "--points", str(AB_N),
          "--depth", "4"])
-    out, counts, _ = ab_call("bf16_grads", bf16_grads.run, args)
+    out, counts, _ = path_call("ab bf16_grads", bf16_grads.run, args)
     ab_forwards("bf16_grads", counts,
                 len(bf16_grads.ARMS) + len(bf16_grads.PARAM_ARMS))
     # the same batch through the f32 arm, its controls and the bf16 arm,
@@ -3332,8 +3317,8 @@ def ab_knobs(work: str) -> dict:
          "--test-frames", str(AB_FRAMES), "--batch", str(AB_B),
          "--time-iters", "3", "--arms", "control,refit=3",
          "--min-seg-acc", str(AB_MIN_SEG)])
-    out, counts, _ = ab_call("pose_knobs_trained", pose_knobs_trained.run,
-                             args)
+    out, counts, _ = path_call("ab pose_knobs_trained",
+                               pose_knobs_trained.run, args)
     ab_forwards("pose_knobs_trained", counts, 1)
     # the same prediction forward and the control's fit, each kernel
     # call held
@@ -3389,8 +3374,9 @@ def accuracy_tools(dev):
     with held_to_plain("ab train") as held:
         make_fused_synthetic_train_step(cfg, dg, AB_B, seed=DATA_KEY)(probe,
                                                                       0)
-    secs, counts, _ = ab_call("train", pose_knobs_trained.train_in_process,
-                              state, dg, AB_STEPS, AB_B)
+    secs, counts, _ = path_call("ab train",
+                                pose_knobs_trained.train_in_process, state,
+                                dg, AB_STEPS, AB_B)
     ab_forwards("train", counts, AB_STEPS)
     log_held("ab train", held, counts)
     paths = {"ab train": counts}
@@ -3401,6 +3387,190 @@ def accuracy_tools(dev):
         paths.update(ab_packed(work, dev))
         paths.update(ab_grads(work))
         paths.update(ab_knobs(work))
+    return paths
+
+
+# --------------------------------------------------------------- phase 16
+TOOLS_ITERS = 2                     # each timing tool's iterations
+TOOLS_PROBE_ITERS = 5
+TOOLS_CPU_B = 2                     # the card-vs-CPU count of a forward
+TOOLS_TRAIN_B = 32                  # profile_train_stages' default
+TOOLS_BATCHES = "64,128"            # ab.batch's default
+TRAIN_STAGE_LAUNCHES = {"fps2": 1, "ball_query_group": 2, "three_nn": 2}
+
+
+def tools_probe() -> dict:
+    """Phase 16(a): probe_card, its FMA kernel held to float64."""
+    from articulated_pose_tpu_torch import probe_card
+    from articulated_pose_tpu_torch.ops.kernels.probe import PROBE_KERNELS
+
+    out = probe_card.run(iters=TOOLS_PROBE_ITERS)
+    c = out["ceilings"]
+    if not (c["hbm_bytes_per_s"] > 0 and c["f32_flops"] > 0):
+        raise AssertionError(f"[probe_card] ceilings {c}")
+    log(f"[probe_card] FMA chain within {out['fma']['max_rel_err']:.3g} "
+        "relative of float64; probe launches "
+        + ", ".join(f"{k.name} {k.launches}" for k in PROBE_KERNELS))
+    return out
+
+
+def tools_roofline(dev) -> dict:
+    """Phase 16(b): roofline at B=64 (bench.py's program, the fit, FPS,
+    the SA1 ball query, FP1's 3-NN, the f32 train step at B=16), each
+    stage's kernel calls as its count says; one forward (B=2) counted on
+    the CPU and then, as a path of its own, on the card, the two counts
+    equal; then each stage, and the B=2 forward, once with its kernel
+    calls held.  Returns the two paths' launch counts."""
+    import torch
+
+    from articulated_pose_tpu_torch import roofline
+    from articulated_pose_tpu_torch.programs import bench_model
+
+    res, counts, _ = path_call("roofline", roofline.run, batch=PACKED_BATCH,
+                               points=N_POINTS, train_batch=TRAIN_B,
+                               train_points=TRAIN_N, device=str(dev))
+    summed = {}
+    for r in res["rows"]:
+        if not (r["floor_ms"] > 0 and r["gflop"] > 0):
+            raise AssertionError(f"[roofline] {r['stage']}: {r}")
+        for k, n in r["kernels"].items():
+            summed[k] = summed.get(k, 0) + n
+    if {k: n for k, n in counts.items() if n} != summed:
+        raise AssertionError(f"[roofline] launches {counts}, its counts "
+                             f"{summed}")
+    P = torch.from_numpy(np.random.RandomState(3).rand(
+        TOOLS_CPU_B, N_POINTS, 3).astype(np.float32))
+    cpu_model = bench_model(torch.device("cpu"))
+    model, x = bench_model(dev), P.to(dev)
+    with torch.no_grad():
+        on_cpu = roofline.count(lambda: cpu_model(P))
+        on_card, fwd_counts, _ = path_call(
+            "roofline forward", roofline.count, lambda: model(x))
+    if not roofline.same_counts(on_card, on_cpu):
+        raise AssertionError(f"[roofline] one forward counts differently on "
+                             f"the card ({on_card}) and the CPU ({on_cpu})")
+    want = expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2)
+    if fwd_counts != want or on_card.kernels != {k: n for k, n in
+                                                 want.items() if n}:
+        raise AssertionError(f"[roofline forward] launches {fwd_counts}, "
+                             f"counted {on_card.kernels}, expected {want}")
+    log(f"[roofline] one forward (B={TOOLS_CPU_B}, N={N_POINTS}, bf16, "
+        f"packed) counts the same on the card and the CPU: GEMM "
+        f"{on_card.gemm / 1e9:.3f} GF, all {on_card.flops / 1e9:.3f} GF, "
+        f"compulsory {on_card.compulsory_bytes / 1e6:.2f} MB, launched "
+        f"{on_card.launched_bytes / 1e6:.2f} MB, {on_card.ops} ops, kernels "
+        f"{on_card.kernels}")
+    fns = roofline.stage_fns(PACKED_BATCH, N_POINTS, TRAIN_B, TRAIN_N, dev)
+    with held_to_plain("roofline") as held:
+        for name, (_, fn) in fns.items():
+            with contextlib.nullcontext() if name == "train" \
+                    else torch.no_grad():
+                fn()
+    log_held("roofline", held, counts)
+    with held_to_plain("roofline forward") as held, torch.no_grad():
+        model(x)
+    log_held("roofline forward", held, fwd_counts)
+    return {"roofline": counts, "roofline forward": fwd_counts}
+
+
+def tools_session(dev, profile_rows, probe) -> dict:
+    """Phase 16(c): roofline_session on phase 8's profile and (a)'s
+    probe: every stage's floor at the published peaks at most its device
+    ms; then the same stages' kernel calls held."""
+    from articulated_pose_tpu_torch import profile_stages, roofline_session
+    from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
+
+    res, counts, _ = path_call(
+        "roofline_session", roofline_session.run, batch=PROFILE_B,
+        points=N_POINTS, device=str(dev), profile_rows=profile_rows,
+        probe=probe)
+    for r in res["rows"]:
+        if not (0 < r["share_published"] <= 1 and r["share_measured"] > 0):
+            raise AssertionError(f"[roofline_session] {r['stage']}: floor "
+                                 f"{r['floor_ms']} ms against "
+                                 f"{r['device_ms']} ms on the device")
+    with held_to_plain("roofline_session") as held:
+        fns = profile_stages.stage_fns(
+            PROFILE_B, N_POINTS, BackboneSpec(),
+            profile_stages.STAGES, dev)
+        for _, fn in fns.values():
+            fn()
+    log_held("roofline_session", held, counts)
+    return counts
+
+
+def tools_train_stages(dev) -> dict:
+    """Phase 16(d): profile_train_stages at B=32, N=1024: its five stages
+    in the JAX script's order, device time in each, 1 fps2, 2
+    ball_query_group and 2 three_nn launches a call but in data gen;
+    then one call of each stage with its kernel calls held."""
+    from articulated_pose_tpu_torch import profile_train_stages
+    from articulated_pose_tpu_torch.programs import train_setup
+
+    rows, counts, _ = path_call(
+        "profile_train_stages", profile_train_stages.run, batch=TOOLS_TRAIN_B,
+        points=TRAIN_N, iters=TOOLS_ITERS, device=str(dev))
+    if [r["stage"] for r in rows] != list(profile_train_stages.STAGES):
+        raise AssertionError(f"[profile_train_stages] stages {rows}")
+    for r in rows:
+        want = {} if r["stage"] == "data gen" else TRAIN_STAGE_LAUNCHES
+        if not (r["device_ms"] > 0 and r["launches"] == want):
+            raise AssertionError(f"[profile_train_stages] {r}")
+    state, batch, dg = train_setup(TOOLS_TRAIN_B, TRAIN_N, dev)
+    with held_to_plain("profile_train_stages") as held:
+        for fn in profile_train_stages.stage_fns(state, batch, dg).values():
+            fn()
+    log_held("profile_train_stages", held, counts)
+    return counts
+
+
+def tools_ab(dev) -> dict:
+    """Phase 16(e-g): ab.overlap (its pipelined fits equal to the serial
+    ones), ab.batch at B=64 and 128, ab.batch_joints (no kernel); each
+    forward's kernel calls held once at each batch size."""
+    import torch
+
+    from articulated_pose_tpu_torch.ab import batch, batch_joints, overlap
+    from articulated_pose_tpu_torch.ab.common import BenchProgram
+
+    paths = {}
+    args = overlap.parser().parse_args(["--iters", str(TOOLS_ITERS)])
+    res, counts, _ = path_call("ab overlap", overlap.run, args)
+    # 2 x (fwd-only, serial, pipelined), each a warm-up and a timed call
+    ab_forwards("overlap", counts, 3 * 2 * TOOLS_ITERS, packed=True)
+    paths["ab overlap"] = counts
+    args = batch.parser().parse_args(["--iters", str(TOOLS_ITERS),
+                                      "--batches", TOOLS_BATCHES])
+    res, counts, _ = path_call("ab batch", batch.run, args)
+    Bs = [int(b) for b in TOOLS_BATCHES.split(",")]
+    # per B: a warm-up, two runs, and the profile's two calls
+    ab_forwards("batch", counts, len(Bs) * (3 + 2 * TOOLS_ITERS),
+                packed=True)
+    for r in res["rows"]:
+        if not (r["device_ms"] > 0 and r["device_ops"] > 0):
+            raise AssertionError(f"[ab batch] {r}")
+    paths["ab batch"] = counts
+    with held_to_plain("ab overlap, batch") as held, torch.inference_mode():
+        for B in Bs:
+            BenchProgram(B, N_POINTS, 1, dev).forward(0)
+    log_held("ab overlap, batch", held, paths["ab overlap"])
+    log_held("ab overlap, batch", held, paths["ab batch"])
+    args = batch_joints.parser().parse_args(["--iters", str(TOOLS_ITERS)])
+    _, counts, _ = path_call("ab batch_joints", batch_joints.run, args)
+    if any(counts.values()):
+        raise AssertionError(f"[ab batch_joints] the fit launched {counts}")
+    return paths
+
+
+def timing_tools(dev, profile_rows) -> dict:
+    """Phase 16: the roofline and timing tools at short counts.  Returns
+    each sub-path's launch counts."""
+    probe = tools_probe()
+    paths = tools_roofline(dev)
+    paths.update({
+        "roofline_session": tools_session(dev, profile_rows, probe),
+        "profile_train_stages": tools_train_stages(dev)})
+    paths.update(tools_ab(dev))
     return paths
 
 
@@ -3421,6 +3591,8 @@ def main() -> int:
     from articulated_pose_tpu_torch.ops.kernels import KERNELS
     from articulated_pose_tpu_torch.ops.kernels.build import (build_all,
                                                               nvcc_path)
+    from articulated_pose_tpu_torch.ops.kernels.probe import PROBE_KERNELS
+    from articulated_pose_tpu_torch.timing import card_line
 
     dev = torch.device("cuda")
     card = card_line()
@@ -3446,8 +3618,10 @@ def main() -> int:
     log(f"[host] native library (labeling, ball renderer; g++): {found}")
 
     t0 = time.perf_counter()
-    seconds = build_all(KERNELS.values())
-    logs = {k.source: k.build_log() for k in KERNELS.values()}
+    # the eleven kernels and the card-limits probe's (phase 16)
+    built = [*KERNELS.values(), *PROBE_KERNELS]
+    seconds = build_all(built)
+    logs = {k.source: k.build_log() for k in built}
     for source, log_text in sorted(logs.items()):
         log(f"[build] {source}: {seconds[source]:.2f} s")
         for line in ptxas_lines(log_text):
@@ -3470,7 +3644,7 @@ def main() -> int:
     with phase("7 N-level"):
         paths.update(nlevel_path(dev))
     with phase("8 profiler"):
-        paths["profile_stages"] = profile_path(dev)
+        paths["profile_stages"], profile_rows = profile_path(dev)
     with phase("9 kernel entries"):
         paths["kernel entries"] = kernel_entries(entries)
     with phase("10 train"):
@@ -3486,6 +3660,8 @@ def main() -> int:
         paths.update(reference_assets(dev))
     with phase("15 accuracy tools"):
         paths.update(accuracy_tools(dev))
+    with phase("16 roofline and timing tools"):
+        paths.update(timing_tools(dev, profile_rows))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -850,3 +850,39 @@ def test_train_step_gradients_match_the_cpu(dev, monkeypatch):
     # dist and idx, twice
     assert len(outputs) == 2 * (4 + 5 + 4)
     assert not any(t.requires_grad for t in outputs)
+
+
+def test_probe_fma_chain_matches_float64(dev):
+    """csrc/probe.cu's FMA chain (the card-limits probe, not an entry of
+    KERNELS) at probe_card's 8 MiB block and at a ragged size, within
+    1e-5 relative of the same chain in float64."""
+    from articulated_pose_tpu_torch.ops.kernels import probe
+
+    assert probe.FMA_KERNEL.name not in KERNELS
+    for n in (2 * 1024 * 1024, 100003):
+        x = torch.from_numpy(np.random.RandomState(3).rand(n).astype(
+            np.float32) + 0.5).to(dev)
+        before = probe.FMA_KERNEL.launches
+        y = probe.fma_chain(x)
+        torch.cuda.synchronize()
+        assert probe.FMA_KERNEL.launches == before + 1
+        want = probe.fma_chain_plain(x.cpu().numpy())
+        rel = np.abs(y.cpu().numpy().astype(np.float64) - want) / want
+        assert rel.max() <= 1e-5
+    probe.empty_launch(dev)
+    torch.cuda.synchronize()
+
+
+def test_device_profile_reads_one_op_for_one_kernel(dev):
+    """A stage of one kernel launch reads one device op a call in
+    `timing.device_profile` (the entry's "kernel:<entry>" range on the
+    card's timeline is no op), and its device ms stay within its wall
+    ms."""
+    from articulated_pose_tpu_torch import timing
+
+    P = _cloud(1, 64, 2048, dev)
+    fn = lambda: fps.fps(P, 512)                           # noqa: E731
+    busy, ops = timing.device_profile(fn, 16)
+    wall = timing.wall_ms(fn, 16)
+    assert ops == 1
+    assert 0 < busy <= wall

@@ -224,3 +224,26 @@ class TestProfileStages:
         assert [r["stage"] for r in rows] == ["bq1", "median"]
         with pytest.raises(ValueError, match="unknown stages"):
             profile_stages.run(stages=["nope"], device="cpu")
+
+    def test_device_events_leave_out_annotations(self):
+        """`timing.device_events` keeps the card's kernels, copies and
+        memsets in start order, and drops the ranges that user
+        annotations (a kernel entry's "kernel:<entry>" scope) place on
+        the card's timeline, so a one-kernel stage reads one op."""
+        from types import SimpleNamespace
+
+        from torch.autograd import DeviceType
+
+        from articulated_pose_tpu_torch import timing
+
+        def ev(name, start, device=DeviceType.CUDA, annotation=False):
+            return SimpleNamespace(name=name, device_type=device,
+                                   is_user_annotation=annotation,
+                                   time_range=SimpleNamespace(start=start))
+
+        events = [ev("fps_kernel", 5), ev("kernel:fps", 4),
+                  ev("user range", 3, annotation=True),
+                  ev("Memset (Device)", 1), ev("aten::add_", 0, DeviceType.CPU),
+                  ev("spin", 9)]
+        assert [e.name for e in timing.device_events(events)] == [
+            "Memset (Device)", "fps_kernel", "spin"]
