@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from articulated_pose_tpu_torch.compiled import compiled
 from articulated_pose_tpu_torch.data.labeling import (nocs_normalize,
                                                       point_line_offset)
 from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
@@ -174,6 +175,8 @@ class DeviceSynthetic:
 
         self.canon = f32(canon)
         self.part_of = torch.as_tensor(part_of, device=device)
+        # each point's one-hot part mask, gathered like the other labels
+        self.mask_of = f32(np.eye(K)[part_of])
         self.nocs_p = f32(nocs_p)
         self.nocs_g = f32(nocs_g)
         self.heat = f32(heat)
@@ -288,8 +291,7 @@ class DeviceSynthetic:
         sample = {
             "P": P,
             "cls_gt": part.to(torch.float32),
-            "mask_array": torch.nn.functional.one_hot(part, K).to(
-                torch.float32),
+            "mask_array": self.mask_of[sel],
             "nocs_gt": self.nocs_p[sel],
             "nocs_gt_g": self.nocs_g[sel],
             "heatmap_gt": self.heat[sel],
@@ -326,7 +328,7 @@ def data_seed(seed: int, step: int) -> int:
 
 def make_fused_synthetic_train_step(config, device_gen: DeviceSynthetic,
                                     batch_size: int, steps_per_call: int = 1,
-                                    seed: int = 1
+                                    seed: int = 1, *, jit: bool = True
                                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Train step with the data generated on the device:
     `fused(state, step) -> metrics` runs `steps_per_call` steps from
@@ -335,20 +337,40 @@ def make_fused_synthetic_train_step(config, device_gen: DeviceSynthetic,
     device tensors (device_synthetic.py:233-263).
 
     Each step reseeds a device generator from (seed, step) and draws its
-    batch from it, then runs `train.state.train_step` with the dropout
-    masks of `dropout_generator(config.seed, step)`, as `Trainer.fit`
-    does.  Nothing in it syncs with the host.
+    batch from it, then runs `train_step` (`make_train_step(config,
+    jit=False)`, JAX's `base_step`) with the dropout masks of
+    `dropout_generator(config.seed, step)`, as `Trainer.fit` does.
+    Nothing in it syncs with the host.
+
+    With `jit` (JAX's `jax.jit(one)`) the draw and the step are one
+    program, captured on the card at the first call and replayed
+    (`compiled.py`), both generators registered with its graph.  A window
+    of `steps_per_call` steps replays it that many times, each after the
+    host reseeds the generators: a graph cannot reseed a generator within
+    a replay, and the seeds are a function of the host's step count, so
+    JAX's `lax.scan` over the window becomes a loop of replays, each one
+    host call.  `jit=False` runs the same body eagerly, for the tools that
+    count or trace its ops.  With `jit`, `fused.program` is the
+    `compiled.Program`.
     """
     dev = device_gen.device
     data = torch.Generator(device=dev)
     dropout = torch.Generator(device=dev)
 
+    def one(state, data_gen: torch.Generator,
+            dropout_gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        batch, _ = device_gen.sample_batch(data_gen, batch_size)
+        return train_step(state, batch, dropout_gen)
+
+    run = compiled(one) if jit else one
+
     def fused(state, step: int) -> Dict[str, torch.Tensor]:
         for s in range(step, step + steps_per_call):
             data.manual_seed(data_seed(seed, s))
-            batch, _ = device_gen.sample_batch(data, batch_size)
             dropout_generator(dropout, config.seed, s)
-            metrics = train_step(state, batch, dropout)
+            metrics = run(state, data, dropout)
         return metrics
 
+    if jit:
+        fused.program = run
     return fused

@@ -14,7 +14,8 @@ N=1024, f32, reference widths, the category's on-card generator):
 - `grad`: `loss_and_grads` on that batch;
 - `grad+update (fixed batch)`: `train_step` on that batch;
 - `fused step (e2e program)`: `make_fused_synthetic_train_step`, one
-  step a call (generate, differentiate, update).
+  step a call (generate, differentiate, update), run eagerly
+  (`jit=False`) so that the profiler sees its ops.
 
 The dropout masks of call i come from `dropout_generator(seed, i)`, as
 the trainer's step i.  JAX perturbed its inputs through a scan carry so
@@ -92,7 +93,7 @@ def stage_fns(state: TrainState, batch: Dict[str, torch.Tensor],
     fns[STAGES[3]] = counted(STAGES[3], lambda i: train_step(
         state, batch, dropout_generator(drop, cfg.seed, i)))
     if dg is not None:
-        fused = make_fused_synthetic_train_step(cfg, dg, B)
+        fused = make_fused_synthetic_train_step(cfg, dg, B, jit=False)
         fns[STAGES[4]] = counted(STAGES[4], lambda i: fused(state, i))
     return fns
 

@@ -5,22 +5,29 @@
 device of its 'data' axis, and runs the forward and the pose fit for a
 batch of clouds; `serve_clouds` pads a stream of clouds to the
 predictor's batch and trims the answers.  The RANSAC draws come from a
-torch.Generator on the device, reseeded from `config.seed` on every
-call, so the same cloud always gets the same poses (the JAX server
-likewise reuses one key for every call); a mesh's shard i draws from
-its own, reseeded from (`config.seed`, i), shard 0 as the unsharded
-predictor does.
+torch.Generator on the device, seeded from `config.seed`, and are the
+same on every call, so the same cloud always gets the same poses (the
+JAX server likewise reuses one key for every call); a mesh's shard i
+draws from its own, seeded from (`config.seed`, i), shard 0 as the
+unsharded predictor does.
+
+Each data shard runs the forward and the fit as one captured program
+(`compiled.py`), as the JAX server compiles them as one (serving.py:
+84-103): on the card a shard's first batch of a shape is run and
+captured, and every later one replays the graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from articulated_pose_tpu_torch.compiled import compiled
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.models.ancsh import build_model
 from articulated_pose_tpu_torch.parallel.mesh import (Mesh, make_mesh,
@@ -32,6 +39,18 @@ from articulated_pose_tpu_torch.train.trainer import (checkpoint_path,
                                                       checkpoint_steps)
 
 POSE_KEYS = ("W", "nocs_per_point", "joint_axis_per_point", "index_per_point")
+
+
+def forward_fit(model, P: torch.Tensor, part: torch.Tensor,
+                joint: torch.Tensor, pose_cfg: PoseFitConfig
+                ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The forward and the fit of one batch (or shard) on P's device with
+    the draws (part, joint), queued: the outputs stay there.  The body of
+    each shard's program in `PosePredictor`; eager when called."""
+    pred = model(P)
+    fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
+                           P, PoseDraws(part=part, joint=joint), pose_cfg)
+    return {"pred": pred, "fits": fits}
 
 
 @dataclasses.dataclass
@@ -119,9 +138,15 @@ class PosePredictor:
         self.use_nonlinear = use_nonlinear and config.pred_joint
         self.mesh = mesh
         self._run, _, self.batch_sharding = shard_serving_setup(
-            self._forward_fit, self.model, mesh)
+            self._serve_shard, self.model, mesh)
         self._generators = [torch.Generator(device=d)
                             for d in self.batch_sharding.devices]
+        # each shard's forward + fit, one program (and static buffers) a
+        # shard, so that shards queued on one device keep their inputs
+        self._programs = [compiled(functools.partial(
+            forward_fit, pose_cfg=self.pose_cfg))
+            for _ in self.batch_sharding.devices]
+        self._default_draws: Dict[Tuple[int, int], PoseDraws] = {}
 
     def draws(self, batch: int, shard: int = 0) -> PoseDraws:
         """The RANSAC draws of one call (of data shard `shard`'s rows):
@@ -130,19 +155,19 @@ class PosePredictor:
         g.manual_seed(shard_seed(self.config.seed, shard))
         return PoseDraws.sample(batch, self.pose_cfg, g, g.device)
 
-    def _forward_fit(self, model, P: torch.Tensor, shard: int,
-                     draws: Optional[PoseDraws]
-                     ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """The forward and the fit of one batch (or shard) on P's device,
-        queued: the outputs stay there."""
-        pred = model(P)
-        draws = draws if draws is not None else self.draws(P.shape[0], shard)
-        fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
-                               P, draws, self.pose_cfg)
-        return {"pred": pred, "fits": fits}
+    def _serve_shard(self, model, P: torch.Tensor, shard: int,
+                     draws: Optional[PoseDraws]):
+        """Data shard `shard`'s program on its rows P, with the caller's
+        draws or the shard's own, drawn once a batch size."""
+        if draws is None:
+            key = (P.shape[0], shard)
+            if key not in self._default_draws:
+                self._default_draws[key] = self.draws(*key)
+            draws = self._default_draws[key]
+        return self._programs[shard](model, P, draws.part, draws.joint)
 
     def _result(self, parts) -> PoseResult:
-        """The host PoseResult of one or more `_forward_fit` outputs, in
+        """The host PoseResult of one or more `forward_fit` outputs, in
         order along the batch."""
         fits = [p["fits"] for p in parts]
         prefix = "nonlinear" if (self.use_nonlinear

@@ -12,10 +12,18 @@
   predictions; the train step moves the batch-norm statistics by the
   scheduled momentum, differentiates the loss with respect to the
   parameters only and applies Adam (state.py:102-140).
+- `make_train_step` / `make_eval_step`: JAX's builders of the compiled
+  steps; `jit=True` captures the step once a batch shape on the card
+  and replays it (`compiled.py`), `jit=False` is the eager step.  The
+  step updates the state in place, which is what JAX's `donate`
+  achieves.
 
 The dropout masks come from a torch.Generator that `dropout_generator`
 reseeds from (config.seed, step) before each step, the counterpart of
-`jax.random.fold_in(rng, step)`; its streams are not JAX's.
+`jax.random.fold_in(rng, step)`; its streams are not JAX's.  A captured
+step registers the generator with its graph, so a replay draws the
+masks of the generator's seed and offset at that moment, as the eager
+step would.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from articulated_pose_tpu_torch import losses as losses_lib
+from articulated_pose_tpu_torch.compiled import compiled
 from articulated_pose_tpu_torch.config import (NetworkConfig,
                                                bn_momentum_schedule,
                                                lr_schedule)
@@ -263,3 +272,43 @@ def eval_step(state: TrainState, batch: Dict
     batch = to_device(batch, state.device)
     _, summaries, pred = forward_loss(state, batch, train=False)
     return pred, summaries
+
+
+def make_train_step(config: NetworkConfig, *, jit: bool = True
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The train step as JAX builds it (state.py:102-128):
+    `step(state, batch, generator=None) -> metrics`, `train_step`'s
+    arguments and metrics.  With `jit` it is captured once a batch
+    signature on the card and replayed (`compiled.py`; the batch is
+    copied into the graph's buffers, the state is read and updated in
+    place); on the CPU, and with `jit=False`, it is `train_step`.
+    `config` is the states' (JAX's signature): the step reads
+    `state.config`.  The captured step's `program` is its
+    `compiled.Program`."""
+    if not jit:
+        return train_step
+    program = compiled(train_step)
+
+    def step(state: TrainState, batch: Dict,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        return program(state, to_device(batch, state.device), generator)
+
+    step.program = program
+    return step
+
+
+def make_eval_step(config: NetworkConfig, *, jit: bool = True):
+    """The eval step as JAX builds it (state.py:131-140):
+    `step(state, batch) -> (pred, metrics)`, captured once a batch
+    signature on the card with `jit`, else `eval_step`; `config` as in
+    `make_train_step`."""
+    if not jit:
+        return eval_step
+    program = compiled(eval_step)
+
+    def step(state: TrainState, batch: Dict):
+        return program(state, to_device(batch, state.device))
+
+    step.program = program
+    return step

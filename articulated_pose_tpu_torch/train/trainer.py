@@ -22,7 +22,8 @@ from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.data.batcher import device_prefetch
 from articulated_pose_tpu_torch.train.state import (TrainState,
                                                     dropout_generator,
-                                                    eval_step, train_step)
+                                                    make_eval_step,
+                                                    make_train_step)
 
 CKPT_NAME = re.compile(r"ckpt_(\d+)\.pt")
 
@@ -111,7 +112,9 @@ class Trainer:
     `train_data` / `val_datas` are reusable iterables of batched numpy
     dicts (e.g. `data.batcher.BatchIterator`).  It trains on the card
     unless `device` names another one; without a card the default
-    raises rather than training on the CPU.
+    raises rather than training on the CPU.  Its train and eval steps
+    are `make_train_step` / `make_eval_step`'s, captured on the card
+    (trainer.py:124-125).
     """
 
     def __init__(self, model: torch.nn.Module, config: NetworkConfig,
@@ -126,6 +129,8 @@ class Trainer:
         self.work_dir = work_dir or os.path.join(config.experiment_dir,
                                                  config.nn_name)
         self.state = TrainState(self.model, config)
+        self.train_step = make_train_step(config)
+        self.eval_step = make_eval_step(config)
         self.generator = torch.Generator(device=device)
         self.ckpt = Checkpointer(os.path.join(self.work_dir, "model"))
         self.logger = MetricLogger(os.path.join(self.work_dir, "log"), "train")
@@ -160,7 +165,7 @@ class Trainer:
             for batch in device_prefetch(train_data, size=2,
                                          device=self.device):
                 dropout_generator(self.generator, cfg.seed, step)
-                metrics = train_step(self.state, batch, self.generator)
+                metrics = self.train_step(self.state, batch, self.generator)
                 step += 1
                 if step % log_every == 0 or step == 1:
                     last_metrics = {k: float(v) for k, v in metrics.items()}
@@ -199,7 +204,7 @@ class Trainer:
             save_dir = os.path.join(self.work_dir, "val_pred",
                                     f"step{int(self.state.step)}")
         for batch in device_prefetch(val_data, size=2, device=self.device):
-            pred, metrics = eval_step(self.state, batch)
+            pred, metrics = self.eval_step(self.state, batch)
             bs = batch["P"].shape[0]
             if save_dir is not None:
                 names = (basenames[n:n + bs] if len(basenames) >= n + bs
@@ -230,7 +235,7 @@ class Trainer:
 
     def predict(self, batch: Dict) -> Dict:
         """The eval-mode predictions of one batch, as numpy."""
-        pred, _ = eval_step(self.state, batch)
+        pred, _ = self.eval_step(self.state, batch)
         return _to_numpy(pred)
 
 

@@ -176,7 +176,8 @@ is non-zero):
    run, or raise ImportError naming PyYAML / h5py without them; (c)
    `ball_viewer.render_points` C++ equal to NumPy, `vis.plot3d_pts`
    writes a PNG (or raises naming matplotlib), `profiling.trace` of one
-   served batch names each launch ("kernel:<entry>"), and
+   served batch's eager forward + fit names each launch
+   ("kernel:<entry>"; a replayed batch names none), and
    `device_memory_stats` gives the peak bytes.
 15. The accuracy tools (`articulated_pose_tpu_torch.ab`), each through
    its own functions, each printing its table: (a) `ransac_strength`
@@ -217,6 +218,35 @@ is non-zero):
    kernel calls are held against their plain versions once more,
    outside the counted runs (`held_to_plain`, which also holds the
    calls that the tools make through the kernel modules).
+17. The compiled programs (`compiled.py`, JAX's `jax.jit` on the card:
+   captured once a shape as a CUDA graph, then replayed): (a)
+   PosePredictor at bench.py's configuration (B=64, bf16 trunk, packed
+   ball query, niter 128/64) and the f32 serve at B=16: the shape's
+   first call (run, then captured), then three calls of fresh clouds,
+   each a replay, every output torch.equal to the eager
+   `serving.forward_fit` on the same clouds and draws, each replay
+   counting its launches; (b) the f32 serve on a data=2 mesh of the one
+   card, shard by shard; (c) five `make_train_step(jit=True)` steps
+   (cfg/network_config.yml in f32, B=16, N=1024, dropout on) and (d)
+   five fused synthetic steps (the e2e recipe: laptop, B=32), each step
+   replayed and run eagerly twice from a common state: every loss, batch
+   statistic, Adam count and step equal bit for bit, the grad norm
+   within rtol 1e-5, each moment leaf within 1e-4 (mu) or 2e-4 (nu) of
+   its largest entry (a pre-batch-norm bias, whose gradient is rounding,
+   of its layer weight's), each parameter within 2.05 learning rates.
+   The eager step does not repeat itself bit for bit on the card (the
+   gathers' backward adds with atomics), so the second eager run is held
+   to the same bounds and printed beside; (e) eager against replayed:
+   ms a call and clouds/s (host clock), device ms, device ops and idle
+   share (torch.profiler), the bytes a call allocates, each program's
+   capture seconds, graph pool bytes and replays, each line with the
+   card's name and power limit; every reading also goes to
+   chiprun_out/compiled_programs.json.
+   Phases 4-16 run their PosePredictor, Trainer.fit and fused steps
+   through the same programs: each path's first call at a shape runs
+   the body, later ones replay.  A kernel call held against its plain
+   version (`held_to_plain`) is an eager one: a shape's first call, or
+   the eager body.
 
     python3 chip_smoke.py --soak WORLDS STEPS
 
@@ -225,8 +255,12 @@ mesh of STEPS steps each, every step held as above; it prints each
 world and, for a step where the heatmap's signs differed, the same step
 held without them imposed.
 
+    python3 chip_smoke.py --compiled
+
+builds the kernels and runs only phase 17.
+
 Each phase logs its host-clock seconds ("[time]").  Each path of
-phases 4-16 runs with the launch counts set to 0 just before it and read
+phases 4-17 runs with the launch counts set to 0 just before it and read
 just after, and fails unless each of its kernels launched.  The last lines are the card's name and power limit as
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -2256,7 +2290,9 @@ def held_to_plain(label: str):
     same inputs and raises unless they agree: 3-NN's indices equal and
     its distances within 1e-6 relative (phase 2's bound), every other
     output equal.  Yields {kernel: the shapes held}.  Launches made in
-    the block belong to no path: run it outside a path's counted run."""
+    the block belong to no path: run it outside a path's counted run.
+    A replayed program (`compiled.py`) runs no Python, so it holds
+    nothing: hold a program's first call at a shape, which runs it."""
     import torch
 
     from articulated_pose_tpu_torch.models import pointnet2
@@ -2274,6 +2310,10 @@ def held_to_plain(label: str):
     def checked(name, kernel):
         def call(*args, **kwargs):
             got = kernel(*args, **kwargs)
+            if torch.cuda.is_current_stream_capturing():
+                # a program's capture (compiled.py) queues the kernel and
+                # runs nothing; its first run, just before, was held
+                return got
             want = plain[name](*args, **kwargs)
             shape = " ".join(
                 "x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
@@ -3013,8 +3053,9 @@ def reference_checkpoint(dev, tmp: pathlib.Path):
         expected_launches(fps2=1, ball_query_group=2, three_nn=2), timer)
     log(f"[ref ckpt serve] on {card_line()}")
     log(f"[ref ckpt serve] StepTimer: {json.dumps(timer.summary())}")
+    # a fresh predictor's first call runs the program (later ones replay)
     with held_to_plain("ref ckpt") as held:
-        predictor(clouds[:REF_SERVE_B])
+        PosePredictor(cfg, state_dict=sd, device=dev)(clouds[:REF_SERVE_B])
     log_held("ref ckpt", held, paths["ref ckpt serve"])
     return predictor, clouds, paths
 
@@ -3104,6 +3145,7 @@ def viewers_and_profiler(predictor, clouds, dev, tmp: pathlib.Path):
 
     from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
                                                         reset_launch_counts)
+    from articulated_pose_tpu_torch.serving import forward_fit
     from articulated_pose_tpu_torch.utils import ball_viewer, profiling, vis
 
     colors = np.random.RandomState(0).rand(len(clouds[0]), 3) * 255
@@ -3133,9 +3175,14 @@ def viewers_and_profiler(predictor, clouds, dev, tmp: pathlib.Path):
         log(f"[viewers] vis.plot3d_pts wrote {(tmp / 'p.png').stat().st_size}"
             f" bytes of PNG")
     torch.cuda.reset_peak_memory_stats()
+    # the served batch's forward + fit as the predictor's program runs it
+    # eagerly: a replay launches its kernels from the graph, naming none
+    x = torch.as_tensor(clouds[:REF_SERVE_B], device=dev)
+    d = predictor.draws(REF_SERVE_B)
     reset_launch_counts()
-    with profiling.trace(str(tmp / "trace")):
-        predictor(clouds[:REF_SERVE_B])
+    with profiling.trace(str(tmp / "trace")), torch.no_grad():
+        forward_fit(predictor.model, x, d.part, d.joint,
+                    predictor.pose_cfg)
     counts = launch_counts()
     events = json.loads((tmp / "trace" / profiling.TRACE_FILE).read_text())
     cats = [(e.get("cat"), e.get("name")) for e in events["traceEvents"]]
@@ -3144,8 +3191,9 @@ def viewers_and_profiler(predictor, clouds, dev, tmp: pathlib.Path):
     named = {k: cats.count(("user_annotation", f"kernel:{k}"))
              for k in ("fps2", "ball_query_group", "three_nn")}
     device = sum(c == "kernel" for c, _ in cats)
-    log(f"[profiler] trace of one served batch: {len(cats)} events, "
-        f"{device} device kernels; launch ranges {json.dumps(named)}")
+    log(f"[profiler] trace of one served batch's forward + fit, eager: "
+        f"{len(cats)} events, {device} device kernels; launch ranges "
+        f"{json.dumps(named)}")
     if any(named[k] != counts[k] for k in named):
         raise AssertionError(f"[profiler] the trace names {named}, the "
                              f"batch launched {counts}")
@@ -3574,6 +3622,415 @@ def timing_tools(dev, profile_rows) -> dict:
     return paths
 
 
+# --------------------------------------------------------------- phase 17
+COMPILED_CALLS = 3                  # fresh-cloud calls, each replayed
+COMPILED_TRAIN_STEPS = 5
+COMPILED_FUSED_B = 32               # the e2e recipe's batch
+COMPILED_FUSED_STEPS = 5
+COMPILED_TIME_ITERS = 10            # host-clock window of each timing
+COMPILED_PROFILE_ITERS = 3          # torch.profiler window of each
+# one train step from a common state, replayed against eager: the
+# gradient's sums in another order (the gathers' backward adds with
+# atomics, so the card's eager step does not repeat itself bit for bit)
+COMPILED_GRAD_NORM_RTOL = 1e-5
+COMPILED_MOMENT_BOUND = 1e-4        # of a leaf's largest entry, as the
+                                    # gradients of tests/test_torch_train.py
+COMPILED_PARAM_LRS = 2.05           # two Adam steps of opposite sign (a
+                                    # ~0 gradient's sign is rounding's),
+                                    # each at most 1.011 lr in steps 1-5
+
+
+def tensor_leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a tree of dicts, lists, tuples and tensors."""
+    import torch
+
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree} if torch.is_tensor(tree) else {}
+    out = {}
+    for k, v in items:
+        out.update(tensor_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def tree_difference(got, want) -> tuple:
+    """(how many leaves differ, of how many; the largest absolute
+    difference and its place) of two trees of tensors; equal means the
+    same shape, dtype and bits, NaN where NaN."""
+    import torch
+
+    g, w = tensor_leaves(got), tensor_leaves(want)
+    if set(g) != set(w):
+        raise AssertionError(f"the trees hold other leaves: "
+                             f"{sorted(set(g) ^ set(w))}")
+    differ, worst, where = 0, 0.0, None
+    for k in sorted(w):
+        a, b = g[k], w[k]
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{k}: {a.dtype}{tuple(a.shape)} against "
+                                 f"{b.dtype}{tuple(b.shape)}")
+        if torch.equal(a, b) or (
+                a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))):
+            continue
+        differ += 1
+        d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+        i = int(d.argmax())
+        if float(d.flatten()[i]) >= worst:
+            worst = float(d.flatten()[i])
+            where = f"{k}{list(np.unravel_index(i, tuple(a.shape)))}"
+    return differ, len(w), worst, where
+
+
+def compiled_serve(label: str, predictor, clouds, batch: int, per_batch):
+    """Phase 17(a, b) for one predictor: the shape's first call (run and
+    captured), then COMPILED_CALLS calls of fresh clouds with the launch
+    counts set to 0, each a replay of every shard's program, and each
+    shard's outputs equal to the eager `forward_fit` on the same rows and
+    draws.  Returns the replayed calls' launch counts."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops.kernels import (launch_counts,
+                                                        reset_launch_counts)
+    from articulated_pose_tpu_torch.serving import forward_fit
+
+    shards = predictor.batch_sharding.shards
+    predictor(clouds[:batch])
+    reset_launch_counts()
+    outs = []
+    for r in range(1, COMPILED_CALLS + 1):
+        P = clouds[r * batch:(r + 1) * batch]
+        outs.append((P, predictor._run(P)))
+    counts = launch_counts()
+    want = expected_launches(**{k: COMPILED_CALLS * shards * n
+                                for k, n in per_batch.items()})
+    if counts != want:
+        raise AssertionError(f"[{label}] launches {counts}, expected {want}")
+    for shard, program in enumerate(predictor._programs):
+        replays = [c.replays for c in program.captured.values()]
+        if replays != [COMPILED_CALLS]:
+            raise AssertionError(f"[{label}] shard {shard}: replays of each "
+                                 f"captured graph {replays}, expected "
+                                 f"[{COMPILED_CALLS}]")
+    for r, (P, got) in enumerate(outs):
+        for shard in range(shards):
+            rows = predictor.batch_sharding.rows(len(P), shard)
+            x = torch.as_tensor(P[rows], device=predictor.device)
+            d = predictor._default_draws[(len(x), shard)]
+            with torch.no_grad():
+                eager = forward_fit(predictor.model, x, d.part, d.joint,
+                                    predictor.pose_cfg)
+            differ, n, worst, where = tree_difference(got[shard], eager)
+            if differ:
+                raise AssertionError(
+                    f"[{label}] call {r + 1} shard {shard}: {differ} of {n} "
+                    f"outputs differ from the eager forward + fit, the "
+                    f"largest by {worst} at {where}")
+    entry = next(iter(predictor._programs[0].captured.values()))
+    log(f"[{label}] {COMPILED_CALLS} calls of {batch} fresh clouds, each "
+        f"shard's program ({shards}) replayed: every output of every shard "
+        f"torch.equal to the eager forward_fit on the same rows and draws; "
+        f"capture {entry.capture_s:.2f} s, graph pool {entry.pool_bytes} "
+        f"bytes; launches {counts}")
+    return counts
+
+
+def state_tree(state) -> dict:
+    """Every tensor of a train state: parameters, batch statistics, both
+    moments, Adam's count and the step."""
+    sd = state.state_dict()
+    return {k: sd[k] for k in ("model", "mu", "nu", "count", "step")}
+
+
+def step_deviations(label: str, got_m, want_m, got, want, zero, lr):
+    """Phase 17(c, d)'s hold on one step of two arms from a common state:
+    the forward is deterministic, so every loss, the batch statistics,
+    Adam's count and the step are equal bit for bit; the gradient's sums
+    may run in another order, so the grad norm is held to rtol
+    COMPILED_GRAD_NORM_RTOL, each moment leaf to COMPILED_MOMENT_BOUND of
+    its largest entry (the second moment, a square, to twice that; a
+    pre-batch-norm bias, whose gradient is rounding, to its layer's
+    weight's) and each parameter to COMPILED_PARAM_LRS learning rates.
+    Returns the readings, each beside its bound."""
+    from articulated_pose_tpu_torch.train.routing import grad_deviations
+
+    losses = [k for k in want_m if k != "grad_norm"]
+    stats = [k for k in want["model"] if "running" in k]
+    equal = tree_difference(
+        ({k: got_m[k] for k in losses}, {k: got["model"][k] for k in stats},
+         got["count"], got["step"]),
+        ({k: want_m[k] for k in losses}, {k: want["model"][k] for k in stats},
+         want["count"], want["step"]))
+    gn = abs(float(got_m["grad_norm"]) / float(want_m["grad_norm"]) - 1.0)
+    worst = {}
+    for key, bound in (("mu", COMPILED_MOMENT_BOUND),
+                       ("nu", 2 * COMPILED_MOMENT_BOUND)):
+        ratio, name, _, _ = grad_deviations(got[key], want[key], zero)[0]
+        worst[key] = (ratio, name, bound)
+    params = {k: got["model"][k] for k in got["mu"]}
+    moved = max(((params[k] - want["model"][k]).abs().max().item() / lr, k)
+                for k in params)
+    out = {"unequal": equal[0], "grad_norm_rel": gn,
+           "mu": worst["mu"][:2], "nu": worst["nu"][:2],
+           "param_lrs": moved}
+    log(f"[{label}] {equal[0]} of {equal[1]} losses, batch statistics and "
+        f"counts differ; grad norm {gn:.3g} relative (bound "
+        f"{COMPILED_GRAD_NORM_RTOL}); mu {worst['mu'][0]:.3g} of its leaf's "
+        f"largest at {worst['mu'][1]}, nu {worst['nu'][0]:.3g} at "
+        f"{worst['nu'][1]} (bounds {COMPILED_MOMENT_BOUND}, "
+        f"{2 * COMPILED_MOMENT_BOUND}); parameters {moved[0]:.3g} lr at "
+        f"{moved[1]} (bound {COMPILED_PARAM_LRS})")
+    if (equal[0] or gn > COMPILED_GRAD_NORM_RTOL
+            or any(r > b for r, _, b in worst.values())
+            or moved[0] > COMPILED_PARAM_LRS):
+        raise AssertionError(f"[{label}] left its bounds (largest unequal "
+                             f"entry {equal[2]} at {equal[3]})")
+    return out
+
+
+def compiled_steps(label: str, arms, steps: int, lr: float):
+    """Phase 17(c, d): `steps` steps of each arm, [(name, step(state, s),
+    state)]: the captured program, the eager body, and the eager body
+    again.  Before each step the two eager states take the captured one's
+    values, so each step runs from a common state; after it the first
+    arm and the third are each held against the second
+    (`step_deviations`).  Returns (the captured steps' launch counts,
+    the readings)."""
+    from articulated_pose_tpu_torch.ops.kernels import launch_counts
+    from articulated_pose_tpu_torch.train.routing import pre_bn_biases
+
+    zero = pre_bn_biases(arms[0][2].model)
+    counts = {k: 0 for k in launch_counts()}
+    readings = []
+    for s in range(steps):
+        for _, _, st in arms[1:]:
+            st.load_state_dict(arms[0][2].state_dict())
+        before = launch_counts()
+        metrics = [arms[0][1](arms[0][2], s)]
+        for k, n in launch_counts().items():
+            counts[k] += n - before[k]
+        metrics += [run(st, s) for _, run, st in arms[1:]]
+        trees = [state_tree(st) for _, _, st in arms]
+        for i in (0, 2):
+            readings.append({"step": s + 1, "arm": arms[i][0], **(
+                step_deviations(f"{label}] [step {s + 1}, {arms[i][0]} "
+                                f"against {arms[1][0]}", metrics[i],
+                                metrics[1], trees[i], trees[1], zero, lr))})
+    return counts, readings
+
+
+def wall_ms(fn, iters: int) -> float:
+    """ms a call of fn on the host clock around `iters` calls, the card
+    synchronised before and after; one call first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def eager_vs_replayed(label: str, batch: int, arms: dict, card: str) -> dict:
+    """Phase 17(e): ms a call, clouds/s, device ms, device ops and idle
+    share of each arm (eager, replayed), and the bytes one call allocates
+    above what was allocated before it, each arm on its own line with the
+    card's name and power limit.  Returns {arm: readings}."""
+    import torch
+
+    from articulated_pose_tpu_torch.timing import device_profile
+
+    out = {}
+    for arm, fn in arms.items():
+        ms = wall_ms(fn, COMPILED_TIME_ITERS)
+        dev_ms, ops = device_profile(fn, COMPILED_PROFILE_ITERS)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[arm] = dict(ms=ms, clouds_per_s=batch / ms * 1e3,
+                        device_ms=dev_ms, ops=ops, idle=1.0 - dev_ms / ms,
+                        peak_bytes=peak)
+        log(f"[compiled time] {label} {arm}: {ms:.3f} ms a call, "
+            f"{batch / ms * 1e3:.1f} clouds/s (host clock, "
+            f"{COMPILED_TIME_ITERS} synchronised calls); device {dev_ms:.3f} "
+            f"ms and {ops} ops a call (torch.profiler, "
+            f"{COMPILED_PROFILE_ITERS} calls), idle share "
+            f"{1.0 - dev_ms / ms:.3f}; a call allocates {peak} bytes at its "
+            f"peak; {card}")
+    return out
+
+
+def program_note(label: str, program) -> dict:
+    """Print and return a captured program's graphs: capture seconds, pool
+    bytes and replays of each."""
+    graphs = [dict(capture_s=e.capture_s, pool_bytes=e.pool_bytes,
+                   replays=e.replays) for e in program.captured.values()]
+    log(f"[compiled] {label}: {len(graphs)} graph(s), " + "; ".join(
+        f"capture {g['capture_s']:.2f} s, pool {g['pool_bytes']} bytes, "
+        f"{g['replays']} replays" for g in graphs))
+    return {"graphs": graphs}
+
+
+def compiled_serving(dev, card: str):
+    """Phase 17(a, b, e): bench.py's serve (B=64, bf16 trunk, packed ball
+    query, niter 128/64), phase 4's f32 serve at B=16 and the f32 serve
+    on a data=2 mesh of the one card, each held replay against eager;
+    then eager against replayed times of the first two.  Returns (each
+    path's launch counts, the readings)."""
+    import torch
+
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.parallel.mesh import make_mesh
+    from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
+
+    cfg = NetworkConfig(category="eyeglasses", n_max_parts=3,
+                        num_points=N_POINTS, batch_size=SERVE_BATCH)
+    state = build_model(cfg, torch.Generator().manual_seed(0)).state_dict()
+    clouds, _, _ = articulated_frames(np.random.RandomState(17),
+                                      (COMPILED_CALLS + 1) * PACKED_BATCH,
+                                      N_POINTS, 3)
+    packed_cfg = cfg.replace(compute_dtype="bfloat16", ball_query_packed=True,
+                             batch_size=PACKED_BATCH)
+    exact = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
+    packed = expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2)
+    serving = {
+        "compiled serve packed bf16": (
+            PosePredictor(packed_cfg, state_dict=state, device=dev),
+            PACKED_BATCH, packed),
+        "compiled serve f32": (PosePredictor(cfg, state_dict=state,
+                                             device=dev), SERVE_BATCH, exact),
+        "compiled serve data=2": (
+            PosePredictor(cfg, state_dict=state,
+                          mesh=make_mesh("data=2", devices=[dev, dev])),
+            SERVE_BATCH, exact)}
+    paths, readings = {}, {}
+    for label, (predictor, batch, per_batch) in serving.items():
+        paths[label] = compiled_serve(label, predictor, clouds, batch,
+                                      per_batch)
+    for label in ("compiled serve packed bf16", "compiled serve f32"):
+        predictor, batch, _ = serving[label]
+        x = torch.as_tensor(clouds[:batch], device=dev)
+        d = predictor._default_draws[(batch, 0)]
+        args = (predictor.model, x, d.part, d.joint)
+        with torch.no_grad():
+            readings[label] = eager_vs_replayed(label, batch, {
+                "eager": lambda: forward_fit(*args, predictor.pose_cfg),
+                "replayed": lambda: predictor._programs[0](*args)}, card)
+        readings[label].update(program_note(label, predictor._programs[0]))
+    return paths, readings
+
+
+def compiled_training(dev, card: str):
+    """Phase 17(c, d, e): make_train_step(jit=True) on cfg/network_config.
+    yml in f32 (B=16, N=1024, dropout on) and the fused synthetic step of
+    the e2e recipe (laptop, B=32), each held replay against eager a step
+    at a time; then eager against replayed times.  Returns (each path's
+    launch counts, the readings)."""
+    import copy
+
+    import torch
+
+    from articulated_pose_tpu_torch import e2e
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.data.device_synthetic import \
+        make_fused_synthetic_train_step
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.train.state import (TrainState,
+                                                        dropout_generator,
+                                                        make_train_step,
+                                                        to_device)
+
+    f32 = load_config(str(ROOT / "cfg" / "network_config.yml")).replace(
+        compute_dtype="float32")
+    if not f32.dropout_rate > 0:
+        raise AssertionError("[compiled train] the config has no dropout")
+    batch = to_device(stack(train_frames(f32, TRAIN_B, seed=0)), dev)
+    model = build_model(f32, torch.Generator().manual_seed(0), device=dev)
+    jit = make_train_step(f32)
+    eager = make_train_step(f32, jit=False)
+
+    def arm(step_fn):
+        gen = torch.Generator(device=dev)
+        return lambda st, s: step_fn(st, batch,
+                                     dropout_generator(gen, f32.seed, s))
+
+    states = [TrainState(model, f32)] + [
+        TrainState(copy.deepcopy(model), f32) for _ in range(2)]
+    steps = [arm(jit), arm(eager), arm(eager)]
+    paths, readings = {}, {}
+    paths["compiled train"], readings["train steps"] = compiled_steps(
+        "compiled train", list(zip(("replayed", "eager", "eager again"),
+                                   steps, states)),
+        COMPILED_TRAIN_STEPS, f32.init_learning_rate)
+
+    args, _, _, ecfg, dg = e2e_setup("laptop", 2, dev)
+    fmodel = build_model(ecfg, torch.Generator().manual_seed(0), device=dev)
+    fstates = [TrainState(fmodel, ecfg)] + [
+        TrainState(copy.deepcopy(fmodel), ecfg) for _ in range(2)]
+    fused = [make_fused_synthetic_train_step(
+        ecfg, dg, COMPILED_FUSED_B, seed=e2e.DATA_KEY, jit=j)
+        for j in (True, False, False)]
+    paths["compiled fused"], readings["fused steps"] = compiled_steps(
+        "compiled fused", list(zip(("replayed", "eager", "eager again"),
+                                   fused, fstates)),
+        COMPILED_FUSED_STEPS, ecfg.init_learning_rate)
+    for label, n in (("compiled train", COMPILED_TRAIN_STEPS),
+                     ("compiled fused", COMPILED_FUSED_STEPS)):
+        want = expected_launches(fps2=n, ball_query_group=2 * n,
+                                 three_nn=2 * n)
+        if paths[label] != want:
+            raise AssertionError(f"[{label}] launches {paths[label]}, "
+                                 f"expected {want}")
+
+    def stepping(step_fn, st, first: int):
+        count = [first]
+
+        def call():
+            step_fn(st, count[0])
+            count[0] += 1
+        return call
+
+    for label, b, (step_jit, step_eager), (st_jit, st_eager), first, prog in (
+            (f"train step B={TRAIN_B} N={TRAIN_N} f32", TRAIN_B,
+             steps[:2], states[:2], COMPILED_TRAIN_STEPS, jit.program),
+            (f"fused step B={COMPILED_FUSED_B} N={args.points} f32",
+             COMPILED_FUSED_B, fused[:2], fstates[:2], COMPILED_FUSED_STEPS,
+             fused[0].program)):
+        readings[label] = eager_vs_replayed(label, b, {
+            "eager": stepping(step_eager, st_eager, first),
+            "replayed": stepping(step_jit, st_jit, first)}, card)
+        readings[label].update(program_note(label, prog))
+    return paths, readings
+
+
+def compiled_programs(dev):
+    """Phase 17.  Returns each sub-path's launch counts; writes every
+    reading to chiprun_out/compiled_programs.json."""
+    import torch
+
+    from articulated_pose_tpu_torch.timing import card_line
+
+    card = card_line()
+    log(f"[compiled] torch {torch.__version__}, {card}")
+    paths, serve_read = compiled_serving(dev, card)
+    train_paths, train_read = compiled_training(dev, card)
+    paths.update(train_paths)
+    out = ROOT / "chiprun_out" / "compiled_programs.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(dict(card=card, **serve_read, **train_read),
+                              indent=1))
+    log(f"[compiled] readings written to {out.relative_to(ROOT)}")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -3630,6 +4087,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--soak"]:
         worlds, steps = (int(x) for x in sys.argv[2:4])
         return mesh_soak(dev, worlds, steps)
+    if sys.argv[1:2] == ["--compiled"]:
+        with phase("17 compiled programs"):
+            compiled_programs(dev)
+        return 0
 
     with phase("2 kernels"):
         kernels, entries = compare_kernels(dev)
@@ -3662,6 +4123,8 @@ def main() -> int:
         paths.update(accuracy_tools(dev))
     with phase("16 roofline and timing tools"):
         paths.update(timing_tools(dev, profile_rows))
+    with phase("17 compiled programs"):
+        paths.update(compiled_programs(dev))
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

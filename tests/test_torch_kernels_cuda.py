@@ -886,3 +886,89 @@ def test_device_profile_reads_one_op_for_one_kernel(dev):
     wall = timing.wall_ms(fn, 16)
     assert ops == 1
     assert 0 < busy <= wall
+
+
+def _tiny_cfg(**kw):
+    from articulated_pose_tpu_torch.config import NetworkConfig
+
+    return NetworkConfig(category="eyeglasses", n_max_parts=3,
+                         num_points=512, backbone_preset="tiny", **kw)
+
+
+def test_replayed_predictor_equals_eager(dev):
+    """PosePredictor's captured forward + fit (compiled.py) at a small
+    width: the first call captures, the next three replay, each output
+    torch.equal to the eager `forward_fit` on the same clouds and draws,
+    and each replay counts its kernels' launches."""
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.ops.kernels import launch_counts
+    from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
+
+    cfg = _tiny_cfg(batch_size=4)
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(5).rand(4, 4, 512, 3).astype(np.float32)
+    d = pred.draws(4)
+    for i, c in enumerate(clouds):
+        before = launch_counts()
+        got = pred._run(c)[0]
+        after = launch_counts()
+        assert (after["fps2"] - before["fps2"],
+                after["three_nn"] - before["three_nn"]) == (1, 2)
+        with torch.no_grad():
+            want = forward_fit(pred.model, torch.from_numpy(c).to(dev),
+                               d.part, d.joint, pred.pose_cfg)
+        leaves = torch.utils._pytree.tree_leaves
+        for a, b in zip(leaves(got), leaves(want)):
+            assert torch.equal(a, b)
+    entry, = pred._programs[0].captured.values()
+    assert entry.replays == 3
+
+
+def test_replayed_train_step_equals_eager(dev):
+    """make_train_step(jit=True) at a small width, dropout on: three steps,
+    each replayed and eager from a common state.  The forward is
+    deterministic, so every loss and batch statistic is torch.equal; the
+    gradient's sums run in another order (atomic adds in the gathers'
+    backward), so the grad norm is held to rtol 1e-5 and the first moment
+    to 1e-4 of each leaf's largest entry (pre-batch-norm biases, whose
+    gradient is rounding, left out)."""
+    import copy
+
+    from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.train.routing import pre_bn_biases
+    from articulated_pose_tpu_torch.train.state import (TrainState,
+                                                        dropout_generator,
+                                                        make_train_step,
+                                                        train_step)
+
+    cfg = _tiny_cfg(batch_size=4)
+    gen = SyntheticArticulated(n_parts=3, points_per_part=200, seed=0)
+    data, _ = gen.batch(np.random.RandomState(0), 4, num_points=512)
+    model = build_model(cfg, torch.Generator().manual_seed(0), device=dev)
+    assert model.joint_net.dropout_rate > 0
+    jit, eager = TrainState(model, cfg), TrainState(copy.deepcopy(model), cfg)
+    step = make_train_step(cfg)
+    gens = [torch.Generator(device=dev) for _ in range(2)]
+    zero = pre_bn_biases(model)
+    for s in range(3):
+        eager.load_state_dict(jit.state_dict())
+        got = step(jit, data, dropout_generator(gens[0], cfg.seed, s))
+        want = train_step(eager, data, dropout_generator(gens[1], cfg.seed, s))
+        for k in want:
+            if k != "grad_norm":
+                assert torch.equal(got[k], want[k]), (s, k)
+        torch.testing.assert_close(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5, atol=0)
+        g, w = jit.state_dict(), eager.state_dict()
+        for k, v in w["model"].items():
+            if "running" in k:
+                assert torch.equal(g["model"][k], v), (s, k)
+        assert int(g["step"]) == int(w["step"]) == s + 1
+        for name, v in w["mu"].items():
+            if name not in zero:
+                err = (g["mu"][name] - v).abs().max().item()
+                assert err <= 1e-4 * v.abs().max().item() + 1e-12, (s, name)
+    entry, = step.program.captured.values()
+    assert entry.replays == 2
