@@ -40,6 +40,15 @@ runs the eager body in its place.  A replay runs no Python: a
 torch.profiler sees its kernels on the card but none of the
 "kernel:<entry>" ranges of `CudaKernel.scope()`.  So the tools that count
 or name ops run the eager body (`jit=False`).
+
+What a trace does see: the "program.capture" span around a signature's
+first call and "program.replay" around each later one (the inputs'
+copy, the launch and the outputs' clones).  Inside the graph the body's
+`utils/profiling.stage` marks stand: the capture records a timing event
+at the body's start and at each mark, so every replay records them on
+the card, and `stage_ms()` reads the last replay's stages in device ms.
+`captures` counts the signatures built and `Captured.replays` each
+one's replays.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from articulated_pose_tpu_torch.ops.kernels import KERNELS, launch_counts
+from articulated_pose_tpu_torch.utils.profiling import span, stage, staging
 
 # leaves of these types enter the signature by value
 _BY_VALUE = (bool, int, float, str, type(None), torch.dtype, torch.device)
@@ -60,7 +70,7 @@ _BY_VALUE = (bool, int, float, str, type(None), torch.dtype, torch.device)
 class CardGraphs:
     """How a program warms up and captures on the card: one side stream a
     device and `torch.cuda.CUDAGraph`s.  The tests put a stand-in's
-    methods in place of these three."""
+    methods in place of these four."""
 
     def __init__(self):
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
@@ -98,6 +108,13 @@ class CardGraphs:
                 reserved = torch.cuda.memory_reserved(device) - reserved
         return graph, out, reserved
 
+    def event(self, device: torch.device) -> torch.cuda.Event:
+        """A timing event recorded on the side stream; during a capture,
+        an event-record node of the graph, recorded at each replay."""
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record(self._stream(device))
+        return ev
+
 
 @dataclasses.dataclass
 class Captured:
@@ -111,6 +128,7 @@ class Captured:
     statics: List[Any]              # the signature's objects, kept alive
     capture_s: float
     pool_bytes: int
+    stages: List[Tuple[str, Any]]   # ("start" or a stage mark, its event)
     replays: int = 0
 
 
@@ -149,12 +167,14 @@ def _clone(tree):
 class Program:
     """`fn` captured once a signature on the card and replayed; `fn` as
     it is on the CPU (see the module docstring).  `captured` holds each
-    signature's `Captured`."""
+    signature's `Captured`; `captures` counts them as they are built."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
         self.graphs = CardGraphs()
         self.captured: Dict[Hashable, Captured] = {}
+        self.captures = 0
+        self._last: Optional[Captured] = None
 
     def __call__(self, *args):
         leaves, spec = pytree.tree_flatten(args)
@@ -168,9 +188,23 @@ class Program:
         key = _signature(leaves, spec)
         entry = self.captured.get(key)
         if entry is None:
-            return self._capture(key, leaves, spec, device)
-        return self._replay(entry, [x for x in leaves
-                                    if isinstance(x, torch.Tensor)])
+            with span("program.capture"):
+                return self._capture(key, leaves, spec, device)
+        with span("program.replay"):
+            return self._replay(entry, [x for x in leaves
+                                        if isinstance(x, torch.Tensor)])
+
+    def stage_ms(self) -> Dict[str, float]:
+        """{stage: device ms} of the last replay, each stage mark's time
+        after the one before it (the first after the replay's start),
+        read once the last mark has passed on the card; {} before a
+        replay or where the body marks no stage."""
+        entry = self._last
+        if entry is None or len(entry.stages) < 2:
+            return {}
+        entry.stages[-1][1].synchronize()
+        return {name: a.elapsed_time(b) for (_, a), (name, b)
+                in zip(entry.stages, entry.stages[1:])}
 
     def _capture(self, key, leaves, spec, device):
         """The first call of a signature: the eager run is its answer,
@@ -185,12 +219,19 @@ class Program:
                   for x in leaves]
         statics = [x for x in leaves if not isinstance(x, torch.Tensor)]
         generators = [x for x in statics if isinstance(x, torch.Generator)]
+        stages = []
+
+        def body():
+            stage("start")
+            return self.fn(*pytree.tree_unflatten(static, spec))
+
         before = launch_counts()
         t0 = time.perf_counter()
         try:
-            graph, outputs, pool = self.graphs.capture(
-                device, lambda: self.fn(*pytree.tree_unflatten(static, spec)),
-                generators)
+            with staging(lambda name: stages.append(
+                    (name, self.graphs.event(device)))):
+                graph, outputs, pool = self.graphs.capture(device, body,
+                                                           generators)
         finally:
             # the capture queued its kernels and launched none of them
             launched = {k: n - before[k] for k, n in launch_counts().items()}
@@ -199,7 +240,8 @@ class Program:
         self.captured[key] = Captured(
             graph=graph, inputs=inputs, outputs=outputs, launches=launched,
             statics=statics, capture_s=time.perf_counter() - t0,
-            pool_bytes=pool)
+            pool_bytes=pool, stages=stages)
+        self.captures += 1
         return out
 
     def _replay(self, entry: Captured, tensors: List[torch.Tensor]):
@@ -210,6 +252,7 @@ class Program:
         for k, n in entry.launches.items():
             KERNELS[k].launches += n
         entry.replays += 1
+        self._last = entry
         return _clone(entry.outputs)
 
 

@@ -30,6 +30,7 @@ from articulated_pose_tpu_torch.data.labeling import (nocs_normalize,
 from articulated_pose_tpu_torch.data.synthetic import SyntheticArticulated
 from articulated_pose_tpu_torch.train.state import (dropout_generator,
                                                     train_step)
+from articulated_pose_tpu_torch.utils.profiling import span, stage
 
 _JT = {"revolute": 0, "prismatic": 1, "fixed": 2}
 PITCH_RANGE = (math.radians(-75.0), math.radians(-15.0))
@@ -351,7 +352,10 @@ def make_fused_synthetic_train_step(config, device_gen: DeviceSynthetic,
     JAX's `lax.scan` over the window becomes a loop of replays, each one
     host call.  `jit=False` runs the same body eagerly, for the tools that
     count or trace its ops.  With `jit`, `fused.program` is the
-    `compiled.Program`.
+    `compiled.Program`: its `stage_ms()` reads the last step's "datagen"
+    (the draw) and "step" (the train step) in device ms.  Under a trace
+    each step's reseed is the span "fused.reseed step=<n>", before the
+    program's "program.replay".
     """
     dev = device_gen.device
     data = torch.Generator(device=dev)
@@ -360,14 +364,18 @@ def make_fused_synthetic_train_step(config, device_gen: DeviceSynthetic,
     def one(state, data_gen: torch.Generator,
             dropout_gen: torch.Generator) -> Dict[str, torch.Tensor]:
         batch, _ = device_gen.sample_batch(data_gen, batch_size)
-        return train_step(state, batch, dropout_gen)
+        stage("datagen")
+        metrics = train_step(state, batch, dropout_gen)
+        stage("step")
+        return metrics
 
     run = compiled(one) if jit else one
 
     def fused(state, step: int) -> Dict[str, torch.Tensor]:
         for s in range(step, step + steps_per_call):
-            data.manual_seed(data_seed(seed, s))
-            dropout_generator(dropout, config.seed, s)
+            with span("fused.reseed", step=s):
+                data.manual_seed(data_seed(seed, s))
+                dropout_generator(dropout, config.seed, s)
             metrics = run(state, data, dropout)
         return metrics
 

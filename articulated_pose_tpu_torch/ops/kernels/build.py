@@ -17,7 +17,6 @@ loader maps it once for all of them.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+
+from articulated_pose_tpu_torch.utils.profiling import span
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "_build"
@@ -128,12 +129,10 @@ class CudaKernel:
         return self._lib
 
     def scope(self):
-        """The scope of one launch: under torch.profiler, a range named
+        """The scope of one launch: under torch.profiler, a span named
         "kernel:<name>", so a trace (`utils/profiling.trace`) names the
         entry that launched each CUDA function; nothing otherwise."""
-        if torch.autograd._profiler_enabled():
-            return torch.profiler.record_function(f"kernel:{self.name}")
-        return contextlib.nullcontext()
+        return span(f"kernel:{self.name}")
 
     def build_log(self) -> str:
         """What ptxas reported (registers, shared memory, spills)."""

@@ -54,6 +54,7 @@ from articulated_pose_tpu_torch.train.state import (TrainState,
                                                     dropout_generator,
                                                     global_norm,
                                                     loss_and_grads, to_device)
+from articulated_pose_tpu_torch.utils.profiling import span
 
 # the parameters whose output features are worth splitting on 'model':
 # the global SA stage's wide layers and the first FP stage (JAX's
@@ -216,10 +217,12 @@ def shard_serving_setup(run_fn: Callable, model: torch.nn.Module,
             replicas[d] = model if d == own else copy.deepcopy(model).to(d)
 
     def sharded_run(clouds, draws: Optional[Sequence] = None) -> list:
-        clouds = np.asarray(clouds, np.float32)
-        rows = [sharding.rows(len(clouds), i) for i in range(len(devices))]
-        inputs = [torch.as_tensor(clouds[r], device=d)
-                  for r, d in zip(rows, devices)]
+        with span("predictor.h2d"):
+            clouds = np.asarray(clouds, np.float32)
+            rows = [sharding.rows(len(clouds), i)
+                    for i in range(len(devices))]
+            inputs = [torch.as_tensor(clouds[r], device=d)
+                      for r, d in zip(rows, devices)]
         draws = draws if draws is not None else [None] * len(devices)
         outs = []
         with torch.no_grad():

@@ -17,7 +17,9 @@ Per frame, batched over frames (B) and parts (K):
 
 The randomness comes in as `PoseDraws`, so a run is a pure function of
 its inputs, and the parity tests can hand in the JAX package's draws.
-Nothing here branches on tensor values on the host.
+Nothing here branches on tensor values on the host.  Inside a captured
+program the ends of steps 1, 2 and 4 are stage marks ("fit.partition",
+"fit.ransac", "fit.joint"; `utils/profiling.stage`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from articulated_pose_tpu_torch.pose.ransac import (gather_points,
                                                     hypothesis_inlier_counts,
                                                     masked_sample_indices,
                                                     ransac_similarity)
+from articulated_pose_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,10 +338,12 @@ def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
     cap = N if cfg.part_points is None else min(cfg.part_points, N)
     src, tgt, mask, cnts = build_part_buffers_sorted(
         pred["nocs_per_point"], P, cls, K, cap)
+    stage("fit.partition")
 
     fits = ransac_similarity(draws.part, src, tgt, mask,
                              inlier_th=cfg.inlier_th, chunk=cfg.ransac_chunk,
                              score_points=cfg.ransac_score_points)
+    stage("fit.ransac")
     out = {"baseline_R": fits.R, "baseline_s": fits.s, "baseline_t": fits.t}
 
     if "joint_axis_per_point" in pred:
@@ -373,6 +378,7 @@ def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
             for i, j in enumerate(js):
                 nl_R[j], nl_s[j], nl_t[j] = (fit.R1[:, i], fit.s1[:, i],
                                              fit.t1[:, i])
+        stage("fit.joint")
         out.update({"nonlinear_R": torch.stack(nl_R, 1),
                     "nonlinear_s": torch.stack(nl_s, 1),
                     "nonlinear_t": torch.stack(nl_t, 1)})

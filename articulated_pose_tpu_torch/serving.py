@@ -15,6 +15,17 @@ Each data shard runs the forward and the fit as one captured program
 (`compiled.py`), as the JAX server compiles them as one (serving.py:
 84-103): on the card a shard's first batch of a shape is run and
 captured, and every later one replays the graph.
+
+Under a trace (`utils/profiling.trace`) a call is the span
+"predictor.call call=<n>", holding "predictor.h2d" (the clouds to each
+shard's device), each shard's "program.capture" or "program.replay",
+then "predictor.wait" (each shard's stream finishing) and, field by
+field of the `PoseResult`, "predictor.d2h" (the shards' arrays copied
+to the host) and "predictor.assemble" (joined); the last three carry
+the call's index as well, the others are known by their parent.  Inside
+the program, the forward and the fit's partition, one-part RANSAC and
+joint groups are stage marks (`stage_ms()`).  `calls` and `d2h_bytes`
+count the calls served and the bytes copied back.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws, PoseFitConfig,
 from articulated_pose_tpu_torch.train.state import shard_seed
 from articulated_pose_tpu_torch.train.trainer import (checkpoint_path,
                                                       checkpoint_steps)
+from articulated_pose_tpu_torch.utils.profiling import span, stage
 
 POSE_KEYS = ("W", "nocs_per_point", "joint_axis_per_point", "index_per_point")
 
@@ -48,6 +60,7 @@ def forward_fit(model, P: torch.Tensor, part: torch.Tensor,
     the draws (part, joint), queued: the outputs stay there.  The body of
     each shard's program in `PosePredictor`; eager when called."""
     pred = model(P)
+    stage("forward")
     fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
                            P, PoseDraws(part=part, joint=joint), pose_cfg)
     return {"pred": pred, "fits": fits}
@@ -147,6 +160,14 @@ class PosePredictor:
             forward_fit, pose_cfg=self.pose_cfg))
             for _ in self.batch_sharding.devices]
         self._default_draws: Dict[Tuple[int, int], PoseDraws] = {}
+        self.calls = 0          # calls served
+        self.d2h_bytes = 0      # results copied to the host
+
+    def stage_ms(self) -> Dict[str, float]:
+        """{stage: device ms} of the first data shard's last replayed call
+        (`compiled.Program.stage_ms`): "forward", then the fit's
+        "fit.partition", "fit.ransac" and "fit.joint"."""
+        return self._programs[0].stage_ms()
 
     def draws(self, batch: int, shard: int = 0) -> PoseDraws:
         """The RANSAC draws of one call (of data shard `shard`'s rows):
@@ -166,15 +187,25 @@ class PosePredictor:
             draws = self._default_draws[key]
         return self._programs[shard](model, P, draws.part, draws.joint)
 
-    def _result(self, parts) -> PoseResult:
+    def _result(self, parts, call: int) -> PoseResult:
         """The host PoseResult of one or more `forward_fit` outputs, in
-        order along the batch."""
+        order along the batch: every shard's work waited for, then field
+        by field the shards' arrays copied and joined, so that one
+        field's copies are freed before the next is copied."""
         fits = [p["fits"] for p in parts]
         prefix = "nonlinear" if (self.use_nonlinear
                                  and "nonlinear_R" in fits[0]) else "baseline"
+        with span("predictor.wait", call=call):
+            for d in self.batch_sharding.devices:
+                if d.type == "cuda":
+                    torch.cuda.current_stream(d).synchronize()
 
         def host(ts):
-            return np.concatenate([t.cpu().numpy() for t in ts])
+            with span("predictor.d2h", call=call):
+                arrays = [t.cpu().numpy() for t in ts]
+            self.d2h_bytes += sum(a.nbytes for a in arrays)
+            with span("predictor.assemble", call=call):
+                return np.concatenate(arrays)
 
         return PoseResult(
             R=host([f[f"{prefix}_R"] for f in fits]),
@@ -197,7 +228,10 @@ class PosePredictor:
                 f"a PosePredictor over {self.batch_sharding.shards} data "
                 f"shards draws each shard's own RANSAC draws: pass one "
                 f"PoseDraws per shard, not {len(draws)}")
-        return self._result(self._run(clouds, draws))
+        call = self.calls
+        self.calls += 1
+        with span("predictor.call", call=call):
+            return self._result(self._run(clouds, draws), call)
 
 
 def serve_clouds(predictor: PosePredictor, clouds: np.ndarray,

@@ -2,26 +2,73 @@
 `articulated_pose_tpu/utils/profiling.py`.
 
 `trace` records a block with torch.profiler (host ops and, on the card,
-its kernels and copies) and writes a Chrome trace into `log_dir`; each
-hand-written kernel's launch shows there as a "kernel:<entry>" range
-(`ops/kernels/build.py::CudaKernel.scope`).  `StepTimer` records
-per-stage wall-clock percentiles, synchronising only where the caller
-asks.  `device_memory_stats` reads the CUDA caching allocator.
+its kernels and copies) and writes a Chrome trace into `log_dir`.  The
+program names its host work there with `span` ranges: each hand-written
+kernel's launch ("kernel:<entry>", `ops/kernels/build.py`), the served
+call's parts ("predictor.*", `serving.py`), a compiled program's capture
+and replay ("program.*", `compiled.py`) and the fused train step's
+reseed ("fused.reseed").  A replay runs no Python, so the stages inside
+a captured program are marked by `stage` instead: timing events recorded
+into its graph, read back by `compiled.Program.stage_ms`.  `StepTimer`
+records per-stage wall-clock percentiles, synchronising only where the
+caller asks.  `device_memory_stats` reads the CUDA caching allocator.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
+import threading
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+_NO_SPAN = contextlib.nullcontext()
+# each thread's stage recorders of the captures in progress, innermost
+# last, so a capture takes only its own thread's marks; a stage mark
+# costs one attribute read while none is
+_STAGING = threading.local()
+
+
+def span(name: str, **ids):
+    """A range of the program's host work, named `name` and, after a
+    space, each `key=value` of `ids` (the call's or step's index, so
+    that every span of one request carries one identifier; a nested
+    span is known by its parent).  While torch.profiler records it is a
+    `record_function` range, on the profiler's clock, which the card's
+    kernels share; otherwise one shared null context, at the cost of
+    one check of the profiler."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    if ids:
+        name = " ".join([name] + [f"{k}={v}" for k, v in ids.items()])
+    return torch.profiler.record_function(name)
+
+
+def stage(name: str) -> None:
+    """Marks the end of stage `name` inside a program being captured on
+    the card (`compiled.Program`): the capture records a timing event
+    there, which its graph records on every replay.  Eager calls and the
+    CPU record nothing, nor does another thread than the capture's."""
+    stack = getattr(_STAGING, "stack", None)
+    if stack:
+        stack[-1](name)
+
+
+@contextlib.contextmanager
+def staging(record: Callable[[str], None]):
+    """`record(name)` takes the stage marks of the block, made in this
+    thread."""
+    stack = _STAGING.__dict__.setdefault("stack", [])
+    stack.append(record)
+    try:
+        yield
+    finally:
+        stack.pop()
 
 
 @contextlib.contextmanager
@@ -80,10 +127,6 @@ class StepTimer:
                 "count": int(len(vals)),
             }
         return out
-
-    def dump(self, path: str):
-        with open(path, "w") as f:
-            json.dump(self.summary(), f, indent=1)
 
 
 def device_memory_stats() -> Optional[Dict]:

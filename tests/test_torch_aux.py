@@ -5,7 +5,8 @@ against the JAX package's.
   C++ one equal to JAX's C++ one and to the NumPy one;
 - `utils/vis`: every plot writes its file (tests/test_aux.py:62-97),
   and raises ImportError naming matplotlib without it;
-- `utils/profiling`: StepTimer, trace and device_memory_stats on the CPU;
+- `utils/profiling`: StepTimer, trace, span, stage and device_memory_stats
+  on the CPU;
 - `ops/core.knn_point` and `sample_and_group(knn=True)` under the SA
   MLP (JAX's `SetAbstraction(knn=True)`) within atol 1e-5 of JAX's, on
   uniform random clouds, where no two distances tie (torch.topk and
@@ -17,6 +18,7 @@ against the JAX package's.
 import json
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -149,7 +151,7 @@ def test_vis_without_matplotlib_raises(tmp_path, monkeypatch):
 
 
 # ------------------------------------------------------------- profiler
-def test_step_timer_summary_and_dump(tmp_path):
+def test_step_timer_summary_and_dump():
     t = profiling.StepTimer()
     for _ in range(5):
         with t.stage("a"):
@@ -160,8 +162,6 @@ def test_step_timer_summary_and_dump(tmp_path):
     assert s["a"]["count"] == 5 and s["b"]["count"] == 1
     assert set(s["a"]) == {"mean_ms", "p50_ms", "p95_ms", "count"}
     assert 0 <= s["a"]["p50_ms"] <= s["a"]["p95_ms"]
-    t.dump(str(tmp_path / "t.json"))
-    assert json.loads((tmp_path / "t.json").read_text()) == s
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
@@ -192,6 +192,39 @@ def test_trace_names_each_kernel_launch(tmp_path):
     assert names.count("kernel:fps2") == 2
     assert names.count("kernel:ball_query_group") == 1
     assert "kernel:three_nn" not in names
+
+
+def test_span_is_named_only_inside_a_trace(tmp_path):
+    """Outside a trace a span is the one shared null context; inside
+    `profiling.trace` it is a range named by its name and ids, nested in
+    the span around it."""
+    assert profiling.span("a.b", call=1) is profiling.span("c")
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("a.b", call=3, shard=0):
+            with profiling.span("a.c"):
+                torch.ones(2).add_(1)
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"])
+             for e in events["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert set(spans) == {"a.b call=3 shard=0", "a.c"}
+    outer, inner = spans["a.b call=3 shard=0"], spans["a.c"]
+    assert outer[0] <= inner[0] <= inner[1] <= outer[1]
+
+
+def test_a_stage_mark_reaches_only_the_capture_in_progress():
+    marks = []
+    profiling.stage("early")
+    with profiling.staging(marks.append):
+        profiling.stage("a")
+        with profiling.staging(lambda n: marks.append("inner " + n)):
+            profiling.stage("b")
+        other = threading.Thread(target=profiling.stage, args=("other",))
+        other.start()
+        other.join()
+        profiling.stage("c")
+    profiling.stage("late")
+    assert marks == ["a", "inner b", "c"]
 
 
 def test_device_memory_stats_on_the_cpu():

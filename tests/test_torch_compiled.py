@@ -20,6 +20,7 @@ The CPU has no graphs, so three things stand in for the card here:
 """
 
 import copy
+import json
 
 import flax.linen as fnn
 import jax
@@ -50,6 +51,7 @@ from articulated_pose_tpu_torch.train.state import (TrainState,
                                                     make_train_step,
                                                     to_device, train_step)
 from articulated_pose_tpu_torch.train.trainer import Trainer
+from articulated_pose_tpu_torch.utils import profiling
 from test_torch_train import (DEV, jax_relu_masks,  # noqa: F401 (fixture)
                               jax_running_stats, jax_side, no_dropout,
                               port_leaves, port_state, running_stats)
@@ -262,18 +264,34 @@ class StandInGraph:
                 a.copy_(b)
 
 
+class StandInEvent:
+    """A timing event on the CPU: the order it was made in stands for its
+    time, in ms."""
+
+    def __init__(self, graphs):
+        self.at = len(graphs.events)
+        graphs.events.append(self)
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return float(end.at - self.at)
+
+
 class StandInGraphs:
     """The card's graphs on the CPU: `applies` everywhere, warm-up on the
-    calling thread, capture as StandInGraph; `fail` makes the capture
-    raise.  A capture changes nothing, as a graph's runs no kernel: it
-    puts back the train states in `keep` and the generators it registers
-    as they were.  Records each capture's generators and counts the
-    replays."""
+    calling thread, capture as StandInGraph, events as StandInEvent;
+    `fail` makes the capture raise.  A capture changes nothing, as a
+    graph's runs no kernel: it puts back the train states in `keep` and
+    the generators it registers as they were.  Records each capture's
+    generators and every event asked for, and counts the replays."""
 
     def __init__(self):
         self.fail = False
         self.keep = []
         self.captures = []
+        self.events = []
         self.replays = 0
 
     def applies(self, device):
@@ -296,12 +314,15 @@ class StandInGraphs:
                                "capturing")
         return StandInGraph(self, body, out), out, 0
 
+    def event(self, device):
+        return StandInEvent(self)
+
 
 @pytest.fixture
 def stand_in(monkeypatch):
     """Every program made in the test captures through StandInGraphs."""
     graphs = StandInGraphs()
-    for name in ("applies", "warm_up", "capture"):
+    for name in ("applies", "warm_up", "capture", "event"):
         monkeypatch.setattr(CardGraphs, name,
                             lambda self, *a, _n=name: getattr(graphs, _n)(*a))
     return graphs
@@ -475,3 +496,101 @@ def test_fused_step_replays_equal_eager(stand_in):
             assert torch.equal(a, b)
     assert len(stand_in.captures) == 1
     assert len(stand_in.captures[0]) == 2       # data and dropout
+
+
+# ---------------------------------------- spans, counters, stage events
+SERVE_STAGES = ["forward", "fit.partition", "fit.ransac", "fit.joint"]
+
+
+def user_spans(log_dir):
+    """(name, start, end) of the trace's host ranges, in start order."""
+    events = json.loads((log_dir / profiling.TRACE_FILE).read_text())
+    return sorted(((e["name"], e["ts"], e["ts"] + e["dur"])
+                   for e in events["traceEvents"]
+                   if e.get("cat") == "user_annotation"),
+                  key=lambda sp: sp[1])
+
+
+def inside(span, outer):
+    return outer[1] <= span[1] and span[2] <= outer[2]
+
+
+def test_a_capture_marks_the_served_stages_and_a_replay_reads_them(
+        stand_in):
+    """The capture asks for the start's event and the four stage marks'
+    in order; the eager first run and the replays ask for none.  Before a
+    replay there is nothing to read; after one, each stage's time."""
+    pred, P = serve_setup(False)
+    clouds = P.numpy()
+    pred(clouds)
+    program = pred._programs[0]
+    entry = next(iter(program.captured.values()))
+    assert [name for name, _ in entry.stages] == ["start"] + SERVE_STAGES
+    assert len(stand_in.events) == 5 and program.captures == 1
+    assert pred.stage_ms() == {}
+    pred(clouds)
+    pred(clouds)
+    assert len(stand_in.events) == 5 and program.captures == 1
+    assert pred.stage_ms() == {name: 1.0 for name in SERVE_STAGES}
+
+
+def test_an_eager_call_marks_no_stage():
+    """On the CPU a program runs its body as it is: no event is asked
+    for and there is nothing to read."""
+    pred, P = serve_setup(False)
+    pred(P.numpy())
+    pred(P.numpy())
+    assert pred._programs[0].captures == 0 and pred.stage_ms() == {}
+
+
+def test_a_served_call_spans_its_parts_in_order(stand_in, tmp_path):
+    """Under a trace a call is "predictor.call call=<n>" holding the
+    copy in, the program, the wait, then each field's copies out and
+    its assembly, in that order, each of the predictor's carrying the
+    call's index."""
+    pred, P = serve_setup(False)
+    clouds = P.numpy()
+    pred(clouds)                                   # call 0, the capture
+    with profiling.trace(str(tmp_path)):
+        out = pred(clouds)
+    spans = [sp for sp in user_spans(tmp_path)
+             if not sp[0].startswith("kernel:")]
+    names = [sp[0] for sp in spans]
+    fields = 5 + len(out.raw)       # R, scale, t, segmentation, counts
+    assert names == ["predictor.call call=1", "predictor.h2d",
+                     "program.replay", "predictor.wait call=1"] + [
+                         "predictor.d2h call=1",
+                         "predictor.assemble call=1"] * fields
+    assert all(inside(sp, spans[0]) for sp in spans[1:])
+    assert all(a[2] <= b[1] for a, b in zip(spans[1:], spans[2:]))
+    assert pred.calls == 2
+
+
+def test_the_predictor_counts_the_bytes_it_copies(stand_in):
+    pred, P = serve_setup(False)
+    clouds = P.numpy().astype(np.float64)
+    out = [pred(clouds), pred(clouds)]
+    arrays = [out[0].R, out[0].scale, out[0].t, out[0].segmentation,
+              out[0].part_counts, *out[0].raw.values()]
+    assert pred.calls == 2
+    assert pred.d2h_bytes == 2 * sum(a.nbytes for a in arrays)
+
+
+def test_the_fused_step_spans_its_reseeds_and_marks_its_stages(
+        stand_in, tmp_path):
+    """Each step's reseed is "fused.reseed step=<n>", followed by the
+    program's capture or replay; the capture marks the draw and the
+    step, which a replay reads."""
+    cfg, dg, model = fused_setup()
+    st = TrainState(model, cfg)
+    stand_in.keep.append(st)
+    fused = ds.make_fused_synthetic_train_step(cfg, dg, 2, steps_per_call=2)
+    with profiling.trace(str(tmp_path)):
+        fused(st, 0)
+    names = [sp[0] for sp in user_spans(tmp_path)
+             if not sp[0].startswith("kernel:")]
+    assert names == ["fused.reseed step=0", "program.capture",
+                     "fused.reseed step=1", "program.replay"]
+    entry = next(iter(fused.program.captured.values()))
+    assert [name for name, _ in entry.stages] == ["start", "datagen", "step"]
+    assert fused.program.stage_ms() == {"datagen": 1.0, "step": 1.0}

@@ -23,7 +23,9 @@ B=64; the rank-select ball query and the packed 3-NN at the stage
 profiler's B=64; the 3-NN kernel at every (G, C), staged and streamed,
 with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
 every path shape and at (4, 2048 <- 16384).  One train step at the
-reference widths is held against the same step on the CPU.
+reference widths is held against the same step on the CPU.  A captured
+program's stage mark times a known spin of the card within 5 % of
+eager events, and the replayed predictor reads its four stages.
 """
 
 import numpy as np
@@ -923,6 +925,63 @@ def test_replayed_predictor_equals_eager(dev):
             assert torch.equal(a, b)
     entry, = pred._programs[0].captured.values()
     assert entry.replays == 3
+
+
+def test_a_replayed_stage_mark_times_the_card(dev):
+    """A stage mark inside a captured program (utils/profiling.stage) is
+    an event-record node of its graph: a replay's reading of a known
+    spin of the card lies within 5 % of two eager events' around the
+    same spin."""
+    from articulated_pose_tpu_torch.compiled import compiled
+    from articulated_pose_tpu_torch.utils.profiling import stage
+
+    cycles = 20_000_000                     # ~10 ms at the card's clock
+
+    def body(x):
+        torch.cuda._sleep(cycles)
+        stage("spin")
+        return x + 1
+
+    prog = compiled(body)
+    x = torch.zeros(4, device=dev)
+    prog(x)                                 # eager, then the capture
+    assert prog.stage_ms() == {}
+    eager, replayed = [], []
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        eager.append(a.elapsed_time(b))
+        prog(x)
+        replayed.append(prog.stage_ms()["spin"])
+    e, r = float(np.median(eager)), float(np.median(replayed))
+    assert abs(r - e) <= 0.05 * e, (eager, replayed)
+    assert prog.captures == 1
+
+
+def test_the_replayed_predictor_reads_its_stages_and_counts_its_copies(dev):
+    """After a replayed call PosePredictor.stage_ms() holds the forward
+    and the fit's three stages, each a positive device time, and
+    d2h_bytes grows by the bytes of the arrays it returned."""
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor
+
+    cfg = _tiny_cfg(batch_size=4)
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(6).rand(4, 512, 3).astype(np.float32)
+    pred(clouds)
+    before = pred.d2h_bytes
+    out = pred(clouds)
+    ms = pred.stage_ms()
+    assert list(ms) == ["forward", "fit.partition", "fit.ransac", "fit.joint"]
+    assert all(v > 0 for v in ms.values()), ms
+    arrays = [out.R, out.scale, out.t, out.segmentation, out.part_counts,
+              *out.raw.values()]
+    assert pred.d2h_bytes - before == sum(a.nbytes for a in arrays)
+    assert pred.calls == 2
 
 
 def test_replayed_train_step_equals_eager(dev):
