@@ -54,6 +54,7 @@ one's replays.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
@@ -101,11 +102,20 @@ class CardGraphs:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        with torch.cuda.device(device):
-            with torch.cuda.graph(graph, stream=self._stream(device)):
-                reserved = torch.cuda.memory_reserved(device)
-                out = body()
-                reserved = torch.cuda.memory_reserved(device) - reserved
+        # no garbage collection while capturing: a collection could free a
+        # dropped program's graph, and tearing a graph down is a call the
+        # capture forbids, which voids it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device):
+                with torch.cuda.graph(graph, stream=self._stream(device)):
+                    reserved = torch.cuda.memory_reserved(device)
+                    out = body()
+                    reserved = torch.cuda.memory_reserved(device) - reserved
+        finally:
+            if collecting:
+                gc.enable()
         return graph, out, reserved
 
     def event(self, device: torch.device) -> torch.cuda.Event:

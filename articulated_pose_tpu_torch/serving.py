@@ -16,16 +16,26 @@ Each data shard runs the forward and the fit as one captured program
 84-103): on the card a shard's first batch of a shape is run and
 captured, and every later one replays the graph.
 
+Each field of a call's `PoseResult` is one host tensor, and every
+shard's array is copied once, into its rows.  From the card the tensor
+is page-locked and the copy is queued on the shard's stream; it comes
+from torch's caching host allocator, so a dropped result's blocks serve
+a later call's copies.  The predictor keeps no host buffer: what it
+returns stays the caller's for as long as the caller holds it.
+
 Under a trace (`utils/profiling.trace`) a call is the span
 "predictor.call call=<n>", holding "predictor.h2d" (the clouds to each
 shard's device), each shard's "program.capture" or "program.replay",
-then "predictor.wait" (each shard's stream finishing) and, field by
-field of the `PoseResult`, "predictor.d2h" (the shards' arrays copied
-to the host) and "predictor.assemble" (joined); the last three carry
+"predictor.d2h" (every field's copies queued) and "predictor.wait"
+(each shard's stream finishing, the copies with it); the last two carry
 the call's index as well, the others are known by their parent.  Inside
 the program, the forward and the fit's partition, one-part RANSAC and
 joint groups are stage marks (`stage_ms()`).  `calls` and `d2h_bytes`
-count the calls served and the bytes copied back.
+count the calls served and the bytes copied back; `pinned_fields` the
+fields copied into page-locked memory and `pinned_allocs` the blocks
+the host allocator had to allocate anew for them, so that
+1 - pinned_allocs / pinned_fields is the share of fields whose block
+was reused.
 """
 
 from __future__ import annotations
@@ -51,6 +61,13 @@ from articulated_pose_tpu_torch.train.trainer import (checkpoint_path,
 from articulated_pose_tpu_torch.utils.profiling import span, stage
 
 POSE_KEYS = ("W", "nocs_per_point", "joint_axis_per_point", "index_per_point")
+
+
+def _host_allocs() -> int:
+    """Page-locked blocks torch's caching host allocator has allocated
+    from CUDA in this process (cached blocks handed out again count
+    nothing)."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def forward_fit(model, P: torch.Tensor, part: torch.Tensor,
@@ -162,6 +179,8 @@ class PosePredictor:
         self._default_draws: Dict[Tuple[int, int], PoseDraws] = {}
         self.calls = 0          # calls served
         self.d2h_bytes = 0      # results copied to the host
+        self.pinned_fields = 0  # result fields copied into page-locked memory
+        self.pinned_allocs = 0  # page-locked blocks allocated anew
 
     def stage_ms(self) -> Dict[str, float]:
         """{stage: device ms} of the first data shard's last replayed call
@@ -187,34 +206,49 @@ class PosePredictor:
             draws = self._default_draws[key]
         return self._programs[shard](model, P, draws.part, draws.joint)
 
+    def _host(self, arrays, pinned: bool) -> torch.Tensor:
+        """One host tensor holding the shards' arrays end to end, each
+        copied into its rows: page-locked, with each copy queued on its
+        shard's stream, when `pinned` (the arrays are on the card);
+        copied at once otherwise."""
+        out = torch.empty((sum(len(a) for a in arrays), *arrays[0].shape[1:]),
+                          dtype=arrays[0].dtype, pin_memory=pinned)
+        lo = 0
+        for a in arrays:
+            out[lo:lo + len(a)].copy_(a, non_blocking=pinned)
+            lo += len(a)
+        self.d2h_bytes += out.nbytes
+        return out
+
     def _result(self, parts, call: int) -> PoseResult:
         """The host PoseResult of one or more `forward_fit` outputs, in
-        order along the batch: every shard's work waited for, then field
-        by field the shards' arrays copied and joined, so that one
-        field's copies are freed before the next is copied."""
+        order along the batch: every field's copies queued, then every
+        shard's stream waited for, then the fields handed back as NumPy
+        views of their host tensors."""
         fits = [p["fits"] for p in parts]
         prefix = "nonlinear" if (self.use_nonlinear
                                  and "nonlinear_R" in fits[0]) else "baseline"
+        fields = {
+            "R": [f[f"{prefix}_R"] for f in fits],
+            "scale": [f[f"{prefix}_s"] for f in fits],
+            "t": [f[f"{prefix}_t"] for f in fits],
+            "segmentation": [p["pred"]["W"].argmax(dim=-1) for p in parts],
+            "part_counts": [f["part_counts"] for f in fits]}
+        raw = {k: [p["pred"][k] for p in parts] for k in parts[0]["pred"]}
+        on_card = any(d.type == "cuda" for d in self.batch_sharding.devices)
+        allocs = _host_allocs() if on_card else 0
+        with span("predictor.d2h", call=call):
+            fields = {k: self._host(a, on_card) for k, a in fields.items()}
+            raw = {k: self._host(a, on_card) for k, a in raw.items()}
+        if on_card:
+            self.pinned_fields += len(fields) + len(raw)
+            self.pinned_allocs += _host_allocs() - allocs
         with span("predictor.wait", call=call):
             for d in self.batch_sharding.devices:
                 if d.type == "cuda":
                     torch.cuda.current_stream(d).synchronize()
-
-        def host(ts):
-            with span("predictor.d2h", call=call):
-                arrays = [t.cpu().numpy() for t in ts]
-            self.d2h_bytes += sum(a.nbytes for a in arrays)
-            with span("predictor.assemble", call=call):
-                return np.concatenate(arrays)
-
-        return PoseResult(
-            R=host([f[f"{prefix}_R"] for f in fits]),
-            scale=host([f[f"{prefix}_s"] for f in fits]),
-            t=host([f[f"{prefix}_t"] for f in fits]),
-            segmentation=host([p["pred"]["W"].argmax(dim=-1) for p in parts]),
-            part_counts=host([f["part_counts"] for f in fits]),
-            raw={k: host([p["pred"][k] for p in parts])
-                 for k in parts[0]["pred"]})
+        return PoseResult(**{k: t.numpy() for k, t in fields.items()},
+                          raw={k: t.numpy() for k, t in raw.items()})
 
     @torch.no_grad()
     def __call__(self, clouds, draws=None) -> PoseResult:
@@ -244,7 +278,7 @@ def serve_clouds(predictor: PosePredictor, clouds: np.ndarray,
     if clouds.ndim != 3 or clouds.shape[-1] != 3 or len(clouds) == 0:
         raise ValueError(f"expected (C, N, 3) clouds with C > 0, got "
                          f"{clouds.shape}")
-    outs = []
+    out = None
     for s in range(0, len(clouds), batch_size):
         chunk = clouds[s:s + batch_size]
         n = len(chunk)
@@ -252,7 +286,14 @@ def serve_clouds(predictor: PosePredictor, clouds: np.ndarray,
             pad = np.repeat(chunk[-1:], batch_size - n, axis=0)
             chunk = np.concatenate([chunk, pad])
         res = predictor(chunk)
-        outs.append({"R": res.R[:n], "s": res.scale[:n], "t": res.t[:n],
-                     "seg": res.segmentation[:n],
-                     "part_counts": res.part_counts[:n]})
-    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+        got = {"R": res.R, "s": res.scale, "t": res.t,
+               "seg": res.segmentation, "part_counts": res.part_counts}
+        if out is None:
+            out = {k: np.empty((len(clouds), *a.shape[1:]), a.dtype)
+                   for k, a in got.items()}
+        for k, a in got.items():
+            out[k][s:s + n] = a[:n]
+        # the batch's answers are copied out: its result's host blocks go
+        # back before the next call, which reuses them
+        del res, got
+    return out

@@ -25,7 +25,10 @@ with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
 every path shape and at (4, 2048 <- 16384).  One train step at the
 reference widths is held against the same step on the CPU.  A captured
 program's stage mark times a known spin of the card within 5 % of
-eager events, and the replayed predictor reads its four stages.
+eager events, and the replayed predictor reads its four stages; its
+results own page-locked host blocks that later calls reuse once
+dropped and never overwrite while held; a capture runs with the garbage
+collector off.
 """
 
 import numpy as np
@@ -927,6 +930,37 @@ def test_replayed_predictor_equals_eager(dev):
     assert entry.replays == 3
 
 
+def test_a_capture_runs_no_garbage_collection(dev):
+    """A dropped program's graph, freed by a collection in the middle of
+    another program's capture, would void that capture: the capture
+    runs with the collector off, and leaves it on after, also when its
+    body raises."""
+    import gc
+
+    from articulated_pose_tpu_torch.compiled import compiled
+
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        return x * 2
+
+    prog = compiled(body)
+    x = torch.ones(4, device=dev)
+    assert gc.isenabled()
+    prog(x)                                 # eager, then the capture
+    assert seen == [True, False] and gc.isenabled()
+
+    def broken(x):
+        if not gc.isenabled():
+            raise ValueError("raised inside the capture")
+        return x + 1
+
+    with pytest.raises(ValueError, match="inside the capture"):
+        compiled(broken)(x)
+    assert gc.isenabled()
+
+
 def test_a_replayed_stage_mark_times_the_card(dev):
     """A stage mark inside a captured program (utils/profiling.stage) is
     an event-record node of its graph: a replay's reading of a known
@@ -982,6 +1016,43 @@ def test_the_replayed_predictor_reads_its_stages_and_counts_its_copies(dev):
               *out.raw.values()]
     assert pred.d2h_bytes - before == sum(a.nbytes for a in arrays)
     assert pred.calls == 2
+
+
+def test_served_results_own_reused_page_locked_blocks(dev):
+    """Each field of a served result is page-locked host memory of
+    torch's caching host allocator, owned by the result: a held result
+    keeps its values while later calls on other clouds run, and once
+    the process has warmed up with results dropped, every field's copy
+    reuses a cached block (pinned_allocs stays while pinned_fields
+    counts every field)."""
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor
+
+    def arrays(res):
+        return {"R": res.R, "scale": res.scale, "t": res.t,
+                "segmentation": res.segmentation,
+                "part_counts": res.part_counts,
+                **{f"raw.{k}": v for k, v in res.raw.items()}}
+
+    cfg = _tiny_cfg(batch_size=4)
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(7).rand(6, 4, 512, 3).astype(np.float32)
+    held = arrays(pred(clouds[0]))
+    kept = {k: a.copy() for k, a in held.items()}
+    for k, a in held.items():
+        assert torch.from_numpy(a).is_pinned(), k
+    for c in clouds[1:]:
+        pred(c)
+    for k, a in held.items():
+        np.testing.assert_array_equal(a, kept[k], err_msg=k)
+    for i in range(3):
+        pred(clouds[i])
+    fields, allocs = pred.pinned_fields, pred.pinned_allocs
+    for i in range(10):
+        pred(clouds[i % 6])
+    assert pred.pinned_fields - fields == 10 * len(held)
+    assert pred.pinned_allocs == allocs
 
 
 def test_replayed_train_step_equals_eager(dev):

@@ -215,6 +215,34 @@ def test_one_shard_mesh_is_the_unsharded_predictor(served):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
+def test_two_shard_result_equals_the_unsharded_predictors(served):
+    """A data=2 mesh given the unsharded predictor's draws, split by
+    rows, returns its PoseResult field by field: each shard's arrays
+    land in their rows of one host array a field."""
+    from articulated_pose_tpu_torch.pose.pipeline import PoseDraws
+
+    two = PosePredictor(served["cfg"], state_dict=served["sd"],
+                        pose_cfg=port_cfg(served["jcfg"]),
+                        mesh=mesh.make_mesh("data=2", devices=CPUS[:2]))
+    plain = served["plain"]
+    P = clouds(B, seed=5)
+    d = plain.draws(B)
+    half = B // 2
+    got = two(P, draws=[PoseDraws(part=d.part[r], joint=d.joint[r])
+                        for r in (slice(0, half), slice(half, B))])
+    want = plain(P)
+    for f in ("R", "scale", "t", "segmentation", "part_counts"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.raw.keys() == want.raw.keys()
+    for k in want.raw:
+        np.testing.assert_array_equal(got.raw[k], want.raw[k], err_msg=k)
+    assert two.d2h_bytes == sum(
+        a.nbytes for a in (got.R, got.scale, got.t, got.segmentation,
+                           got.part_counts, *got.raw.values()))
+    assert two.pinned_fields == two.pinned_allocs == 0
+
+
 def test_batch_divisibility_error_matches_jax(served):
     P = clouds(6)
     with pytest.raises(ValueError) as want:

@@ -94,6 +94,36 @@ class TestServedSlice:
         with pytest.raises(ValueError, match="clouds"):
             serve_clouds(pred, P[:0], batch_size=2)
 
+    def test_serve_clouds_drops_each_batch_before_the_next(self):
+        """serve_clouds copies a batch's answers out and lets its result
+        go before the next call, so a stream never holds more than one
+        result's host memory; its answers are the results' rows."""
+        import weakref
+
+        from articulated_pose_tpu_torch.serving import PoseResult
+
+        alive, results = [], []
+        rng = np.random.default_rng(0)
+
+        def predictor(chunk):
+            assert not any(ref() is not None for ref in alive)
+            B = len(chunk)
+            res = PoseResult(
+                R=rng.random((B, 2, 3, 3)), scale=rng.random((B, 2)),
+                t=rng.random((B, 2, 3)),
+                segmentation=rng.integers(0, 2, (B, N_POINTS)),
+                part_counts=rng.integers(0, 9, (B, 2)), raw={})
+            alive.append(weakref.ref(res.R))
+            results.append({"R": res.R.copy(), "seg": res.segmentation.copy()})
+            return res
+
+        out = serve_clouds(predictor, clouds(5, seed=1), batch_size=2)
+        assert len(results) == 3
+        np.testing.assert_array_equal(
+            out["R"], np.concatenate([r["R"] for r in results])[:5])
+        np.testing.assert_array_equal(
+            out["seg"], np.concatenate([r["seg"] for r in results])[:5])
+
     def test_weights_from_a_saved_state_dict(self, tmp_path):
         kw, jcfg, flat = tiny_setup()
         sd = state_dict_from_flax(flat)
