@@ -10,7 +10,9 @@ step (`bn_momentum_schedule`, `lr_schedule`).
 `load_config` reads the JAX package's config files (`cfg/*.yml`) with a
 small reader of its own (`read_flat_yaml`), so it needs no PyYAML, and
 it refuses a key that neither package knows, as JAX's `load_config`
-does.
+does.  One key is the port's alone (`PORT_FIELDS`): `backbone`, which
+picks PointNet++ ("pointnet2", the JAX package's only backbone) or the
+Point Transformer ("point_transformer", `models/point_transformer.py`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ JAX_FIELDS = (
     "fixed_order_val", "thres_r", "ransac_niter_part", "ransac_niter_joint",
     "ransac_inlier_th", "lm_iters", "use_gt_joint_association",
     "mesh_shape", "seed")
+# the keys only the port knows, which load_config accepts beside JAX's
+PORT_FIELDS = ("backbone",)
+BACKBONES = ("pointnet2", "point_transformer")
 
 
 @dataclasses.dataclass
@@ -62,6 +67,7 @@ class NetworkConfig:
     early_split_nocs: bool = True
     dropout_rate: float = 0.5          # the backbone's dp1, in training
     backbone_preset: str = "reference"  # 'reference' | 'tiny'
+    backbone: str = "pointnet2"        # one of BACKBONES (the port's key)
     compute_dtype: str = "float32"     # 'float32' | 'bfloat16' trunk
     # mixed-precision policy under a bf16 trunk (None = compute_dtype):
     # the heads' dtype; what each SA stage's last layer emits and pools
@@ -115,6 +121,9 @@ class NetworkConfig:
         if self.nocs_type not in ("ancsh", "npcs"):
             raise ValueError(
                 f"nocs_type must be 'ancsh' or 'npcs', got {self.nocs_type!r}")
+        if self.backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {BACKBONES}, got "
+                             f"{self.backbone!r}")
         if self.compute_dtype not in DTYPE_NAMES:
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got "
@@ -293,16 +302,16 @@ def load_config(path: Optional[str] = None, **overrides) -> NetworkConfig:
     read by `read_flat_yaml`), applying overrides.
 
     Keys of the JAX package's config that serving does not read are
-    ignored, so one file serves both packages; a key of neither raises
-    ValueError, from the file or from the overrides, as JAX does
-    (config.py:141-144).
+    ignored, so one file serves both packages; `PORT_FIELDS` are the
+    port's own; a key of neither raises ValueError, from the file or
+    from the overrides, as JAX does (config.py:141-144).
     """
     fields = {}
     if path is not None:
         with open(path) as f:
             fields.update(read_flat_yaml(f.read(), str(path)))
     fields.update(overrides)
-    unknown = set(fields) - set(JAX_FIELDS)
+    unknown = set(fields) - set(JAX_FIELDS) - set(PORT_FIELDS)
     if unknown:
         raise ValueError(f"unknown config keys: {sorted(unknown)}")
     known = {f.name for f in dataclasses.fields(NetworkConfig)}

@@ -10,19 +10,25 @@ index_per_point (softmax).  `forward` follows `self.training`: batch norm
 on the batch's statistics and dropout (dp1 in the backbone, dp_0 and
 dp_1 in the joint head) in training mode.  The heads run in
 `head_dtype` (None = the trunk's `dtype`); the backbone takes the rest
-of the mixed-precision policy (ancsh.py:73-96).
+of the mixed-precision policy (ancsh.py:73-96).  The heads take their
+input width from the backbone: PointNet++'s fc1 (128 at the reference
+widths) or the Point Transformer's segmentation feature (32;
+`models/point_transformer.py`), which a `PointTransformerSpec` as
+`backbone_spec` selects.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from articulated_pose_tpu_torch.models.layers import (PointConv, dropout,
                                                      init_weights)
+from articulated_pose_tpu_torch.models.point_transformer import (
+    PT_TINY_WIDTHS, PointTransformerBackbone, PointTransformerSpec)
 from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
                                                          BackboneSpec,
                                                          PointNet2Backbone)
@@ -67,11 +73,15 @@ class JointHead(nn.Module):
 
 class ANCSHModel(nn.Module):
     """Full per-point multi-head model; `mixed` selects ANCSH (part +
-    global NOCS) over NPCS (part NOCS only)."""
+    global NOCS) over NPCS (part NOCS only).  A `PointTransformerSpec`
+    builds the Point Transformer backbone, which takes none of
+    PointNet++'s policy knobs (`pool_dtype`, `act_dtype`, `f32_stages`)
+    and no input features."""
 
     def __init__(self, n_max_parts: int = 3, mixed: bool = True,
                  pred_joint: bool = True, early_split_nocs: bool = True,
-                 backbone_spec: BackboneSpec = BackboneSpec(),
+                 backbone_spec: Union[BackboneSpec, PointTransformerSpec]
+                 = BackboneSpec(),
                  dtype: torch.dtype = torch.float32,
                  head_dtype: Optional[torch.dtype] = None,
                  pool_dtype: Optional[torch.dtype] = None,
@@ -83,12 +93,23 @@ class ANCSHModel(nn.Module):
         self.mixed = mixed
         self.pred_joint = pred_joint
         self.early_split_nocs = early_split_nocs
-        self.backbone = PointNet2Backbone(
-            backbone_spec, dtype=dtype, in_features=in_features,
-            pool_dtype=pool_dtype, act_dtype=act_dtype,
-            f32_stages=tuple(f32_stages))
+        if isinstance(backbone_spec, PointTransformerSpec):
+            knobs = {"pool_dtype": pool_dtype, "act_dtype": act_dtype,
+                     "f32_stages": tuple(f32_stages) or None,
+                     "in_features": in_features or None}
+            given = sorted(k for k, v in knobs.items() if v is not None)
+            if given:
+                raise ValueError(f"the Point Transformer backbone takes "
+                                 f"none of {given}")
+            self.backbone = PointTransformerBackbone(backbone_spec,
+                                                     dtype=dtype)
+        else:
+            self.backbone = PointNet2Backbone(
+                backbone_spec, dtype=dtype, in_features=in_features,
+                pool_dtype=pool_dtype, act_dtype=act_dtype,
+                f32_stages=tuple(f32_stages))
         hdt = dtype if head_dtype is None else head_dtype
-        width = backbone_spec.head_width
+        width = self.backbone.out_features
         out_dims = [K, 3 * K] + ([K, 3 * K] if mixed else []) + [1]
         self.n_heads = len(out_dims)
         for i, d in enumerate(out_dims):
@@ -151,10 +172,12 @@ def _dtype_or_none(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def build_model(config, generator: Optional[torch.Generator] = None,
-                device=None, spec: Optional[BackboneSpec] = None
+                device=None,
+                spec: Union[BackboneSpec, PointTransformerSpec, None] = None
                 ) -> ANCSHModel:
     """The model of a NetworkConfig, in eval mode, with the reference's
-    initialisation drawn from `generator`.  The ball-query route follows
+    initialisation drawn from `generator`.  `config.backbone` picks
+    PointNet++ or the Point Transformer.  The ball-query route follows
     `use_pallas` and `ball_query_packed`, the dtypes the mixed-precision
     knobs, as the JAX package's build_model maps them (ancsh.py:153-186).
     `spec` gives the backbone's widths in place of `backbone_preset`'s
@@ -162,18 +185,23 @@ def build_model(config, generator: Optional[torch.Generator] = None,
     and ball-query route."""
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
-    if spec is None:
-        spec = BackboneSpec(**(TINY_WIDTHS if config.backbone_preset == "tiny"
-                               else {}))
+    tiny = config.backbone_preset == "tiny"
+    if config.backbone == "point_transformer":
+        spec = dataclasses.replace(
+            spec or PointTransformerSpec(**(PT_TINY_WIDTHS if tiny else {})),
+            dropout_rate=config.dropout_rate)
+    else:
+        spec = dataclasses.replace(
+            spec or BackboneSpec(**(TINY_WIDTHS if tiny else {})),
+            dropout_rate=config.dropout_rate,
+            ball_query_impl="pallas" if config.use_pallas else "xla",
+            ball_query_packed=config.ball_query_packed)
     model = ANCSHModel(
         n_max_parts=config.n_max_parts,
         mixed=config.is_mixed,
         pred_joint=config.pred_joint,
         early_split_nocs=config.early_split_nocs,
-        backbone_spec=dataclasses.replace(
-            spec, dropout_rate=config.dropout_rate,
-            ball_query_impl="pallas" if config.use_pallas else "xla",
-            ball_query_packed=config.ball_query_packed),
+        backbone_spec=spec,
         dtype=DTYPES[config.compute_dtype],
         head_dtype=_dtype_or_none(config.head_compute_dtype),
         pool_dtype=_dtype_or_none(config.pool_compute_dtype),

@@ -153,7 +153,8 @@ def init_weights(model: nn.Module, generator: Optional[torch.Generator] = None
                 fan_out, fan_in = m.weight.shape
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, ScheduledBatchNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -42,6 +42,8 @@ from articulated_pose_tpu_torch.ops.kernels.ball_query import (
     ball_query_group, ball_query_group_bucket, ball_query_group_packed,
     ball_query_idx)
 from articulated_pose_tpu_torch.ops.kernels.fps import fps, fps2
+from articulated_pose_tpu_torch.ops.kernels.knn import (MAX_K,
+                                                       knn as knn_kernel)
 from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
 from articulated_pose_tpu_torch.models.layers import (PointConv, SharedMLP,
                                                      dropout)
@@ -128,7 +130,8 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
                      ball_query_packed: bool = False, precomputed_fps=None,
                      knn: bool = False, use_xyz: bool = True):
     """FPS → ball query (or, with knn, the nsample nearest points:
-    JAX's SetAbstraction(knn=True), pointnet2.py:69-70) → group → centre
+    JAX's SetAbstraction(knn=True), pointnet2.py:69-70; the `knn` kernel
+    entry for nsample <= 16, else `core.knn_point`) → group → centre
     (pointnet2.py:40-120).
 
     xyz (B, N, 3) f32, points (B, N, C) or None -> (new_xyz (B, M, 3),
@@ -144,7 +147,8 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
     else:
         _, new_xyz = fps(xyz, npoint)
     if knn:
-        _, idx = core.knn_point(nsample, xyz, new_xyz)
+        search = knn_kernel if nsample <= MAX_K else core.knn_point
+        _, idx = search(nsample, xyz, new_xyz)
         grouped = core.group_point(xyz, idx) - new_xyz[:, :, None]
     else:
         grouped, idx = group(radius, nsample, xyz, new_xyz,
@@ -286,6 +290,7 @@ class PointNet2Backbone(nn.Module):
             width = fp.out_features
         self.fc1 = PointConv(width, s.head_width, dtype=stage_dtype("fc1"),
                              out_dtype=act_dtype)
+        self.out_features = s.head_width
 
     def forward(self, X: torch.Tensor, bn_momentum=0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -271,10 +271,18 @@ def interp_weights(dist: torch.Tensor) -> torch.Tensor:
 def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
     """k nearest neighbours (core.py:259, tf_grouping.py:48-73): xyz
     (B, N, 3), new_xyz (B, M, 3) -> (dist (B, M, k) squared ascending,
-    idx (B, M, k) int32).  torch.topk over `pairwise_sqdist`; among equal
-    distances it may pick another order than lax.top_k."""
-    neg, idx = torch.topk(-pairwise_sqdist(new_xyz, xyz), k, dim=-1)
-    return -neg, idx.to(torch.int32)
+    idx (B, M, k) int32), ties to the lowest index, as lax.top_k sends
+    them.  The plain version of the `knn` kernel entry
+    (`ops/kernels/knn.py`).  Each (distance, index) pair is one int64
+    key, the distance's bits above the index: the bits of a float >= 0
+    order as the float does, so the keys are distinct and a topk over
+    them orders ties by index, at a topk's cost and not a sort's."""
+    d2 = pairwise_sqdist(new_xyz, xyz)                      # >= 0
+    col = torch.arange(d2.shape[-1], device=d2.device)
+    key = (d2.view(torch.int32).to(torch.int64) << 32) | col
+    idx = torch.topk(key, k, dim=-1, largest=False, sorted=True)[0] \
+        & 0xFFFFFFFF
+    return torch.gather(d2, -1, idx), idx.to(torch.int32)
 
 
 def prob_sample(weights: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:

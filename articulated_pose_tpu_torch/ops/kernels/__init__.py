@@ -6,12 +6,14 @@ loaded the first time a CUDA tensor reaches its wrapper
 `ball_query.ball_query_group_packed`, `ball_query.ball_query_idx`,
 `ball_query.ball_query_point`, `ball_query.ball_query_point_grouped`,
 `ball_query.ball_query_group_bucket`, `three_nn.three_nn`,
-`three_nn.three_nn_stream`, `three_nn.three_nn_packed`).  Each entry
-replaces one TPU kernel and counts its own launches, also where two
-entries launch the same CUDA function.
+`three_nn.three_nn_stream`, `three_nn.three_nn_packed`, `knn.knn`).
+Each entry but `knn` replaces one TPU kernel (`knn` replaces a
+`lax.top_k`, for the Point Transformer backbone), and each counts its
+own launches, also where two entries launch the same CUDA function.
 """
 
-from articulated_pose_tpu_torch.ops.kernels import ball_query, fps, three_nn
+from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps, knn,
+                                                    three_nn)
 
 # every kernel, by name
 KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
@@ -21,7 +23,7 @@ KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
                                 ball_query.POINT_GROUPED_KERNEL,
                                 ball_query.BUCKET_KERNEL, three_nn.KERNEL,
                                 three_nn.STREAM_KERNEL,
-                                three_nn.PACKED_KERNEL)}
+                                three_nn.PACKED_KERNEL, knn.KERNEL)}
 
 
 def reset_launch_counts() -> None:
@@ -33,5 +35,5 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "ball_query", "fps", "three_nn", "launch_counts",
+__all__ = ["KERNELS", "ball_query", "fps", "knn", "three_nn", "launch_counts",
            "reset_launch_counts"]

@@ -150,6 +150,14 @@ def three_nn_work(B: int, N: int, M: int) -> Work:
                 4 * 3 * (B * N + B * M) + 2 * 4 * 3 * B * N)
 
 
+def knn_work(B: int, M: int, N: int, k: int) -> Work:
+    """The `knn` entry: M queries against N candidates a cloud, each pair
+    one distance (PAIR_FLOPS) and each point's and query's |p|^2; reads
+    both clouds once, writes (B, M, k) distances and indices."""
+    return Work(B * M * N * PAIR_FLOPS + B * (N + M) * NORM_FLOPS,
+                4 * 3 * (B * N + B * M) + 2 * 4 * B * M * k)
+
+
 def scanned_points(idx: torch.Tensor, cnt: torch.Tensor, N: int
                    ) -> Tuple[int, int]:
     """Points a first-S ball query has to examine for these hits: each
@@ -176,6 +184,10 @@ def kernel_work(name: str, args, kwargs, out) -> Work:
         xyz = args[0]
         return fps_work(xyz.shape[0], xyz.shape[1],
                         _arg(args, kwargs, 1, "npoint"))
+    if name == "knn":
+        k, xyz, new_xyz = (_arg(args, kwargs, i, n)
+                           for i, n in enumerate(("k", "xyz", "new_xyz")))
+        return knn_work(xyz.shape[0], new_xyz.shape[1], xyz.shape[1], k)
     if name in THREE_NN:
         a, b = args[0], _arg(args, kwargs, 1, "xyz2")
         return three_nn_work(a.shape[0], a.shape[1], b.shape[1])

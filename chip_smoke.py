@@ -11,10 +11,12 @@ is non-zero):
    limit), the torch / CUDA / nvcc versions, whether scipy, h5py,
    matplotlib, yaml, pybullet and cv2 import on the host and whether the
    native library (labeling, ball renderer) builds.
-1. Build the CUDA sources from csrc/ (the eleven kernels' three and the
+1. Build the CUDA sources from csrc/ (the twelve kernels' four and the
    card-limits probe's), one nvcc each, all at once; print each
    kernel's registers, shared memory and spills (ptxas -v).
-2. Hold each of the eleven kernels against its plain PyTorch version at
+2. Hold each of the eleven kernels of the PointNet++ paths (`knn` is
+   held by tests/test_torch_kernels_cuda.py) against its plain PyTorch
+   version at
    the shapes its paths give it: the serving path's (B=16, N=2048), the
    large-cloud path's (B=4, N=32768), the N-level path's (B=8,
    N=8192 -> 1024 -> 256 -> 64 -> 16), the stage profiler's (B=64,
@@ -265,6 +267,17 @@ just after, and fails unless each of its kernels launched.  The last lines are t
 nvidia-smi prints them, a JSON object describing each kernel, then
 {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+18. Point Transformer (`models/point_transformer.py`): a flat YAML with
+   `backbone: point_transformer` and the bf16 trunk read by
+   `load_config`, a seeded model at the published widths saved as a
+   trainer checkpoint, then `serve --synthetic` through main(argv) at
+   B=16, N=8192: 9 knn, 4 fps and 4 three_nn launches a batch, every
+   pose finite, the predictor's stage marks read on its last replay
+   (k-NN, attention and the rest summed); then the `knn` kernel at the
+   cell's nine searches (B=16) held equal to its plain version, with its
+   ms, the plain version's, torch.topk(torch.cdist(...), k)'s and its
+   bound (`python3 chip_smoke.py --ptv1` runs this phase alone after the
+   build).
 """
 
 from __future__ import annotations
@@ -4031,6 +4044,101 @@ def compiled_programs(dev):
     return paths
 
 
+PTV1_B, PTV1_N, PTV1_FRAMES = 16, 8192, 32
+# the cell's nine k-NN searches: (M queries, N points, k)
+PTV1_SEARCHES = ((8192, 8192, 8), (2048, 8192, 16), (2048, 2048, 16),
+                 (512, 2048, 16), (512, 512, 16), (128, 512, 16),
+                 (128, 128, 16), (32, 128, 16), (32, 32, 16))
+
+
+def ptv1_knn_times(dev) -> dict:
+    """The `knn` kernel at the cell's nine searches (B=16; the queries
+    points of the cloud, as the backbone's are): held equal to its plain
+    version, then its ms, the plain version's, torch.topk over
+    torch.cdist's and the bound from roofline.knn_work.  Returns its
+    entry of the kernels' JSON line (`kernel_result`)."""
+    import torch
+
+    from articulated_pose_tpu_torch import roofline, timing
+    from articulated_pose_tpu_torch.ops.kernels import knn
+
+    times, shapes, bounds, errs = [], [], [], []
+    for M, N, k in PTV1_SEARCHES:
+        xyz = torch.from_numpy(np.random.RandomState(N + M).rand(
+            PTV1_B, N, 3).astype(np.float32)).to(dev)
+        q = xyz[:, ::N // M].contiguous()
+        got, want = knn.knn(k, xyz, q), knn.knn_plain(k, xyz, q)
+        errs.append(check_equal(f"[ptv1 knn] {M} <- {N}, k={k}", got, want))
+        times.append(time_both(
+            lambda: knn.knn(k, xyz, q), lambda: knn.knn_plain(k, xyz, q),
+            lambda: torch.topk(torch.cdist(q, xyz), k, largest=False)))
+        work = roofline.knn_work(PTV1_B, M, N, k)
+        bounds.append(timing.roofline_ms(work.flops, work.bytes))
+        shapes.append([PTV1_B, M, N, k])
+        log(f"[ptv1 knn] B={PTV1_B} {M} <- {N}, k={k} (lanes "
+            f"{knn.knn_plan(PTV1_B, M, N)}): equal; {times[-1][4]}; bound "
+            f"{max(bounds[-1]):.4f} ms")
+        del xyz, q, got, want
+        torch.cuda.empty_cache()
+    return kernel_result(max(errs), times, shapes, bounds)
+
+
+def ptv1_serve(dev):
+    """Phase 18: serve the Point Transformer configuration once through
+    the command line, its config read by load_config."""
+    import tempfile
+
+    import torch
+
+    from articulated_pose_tpu_torch.config import load_config
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor
+    from articulated_pose_tpu_torch.train.state import TrainState
+    from articulated_pose_tpu_torch.train.trainer import Checkpointer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = pathlib.Path(tmp)
+        path = work / "ptv1.yml"
+        path.write_text("backbone: point_transformer\n"
+                        "compute_dtype: bfloat16\n")
+        cfg = load_config(str(path), num_points=PTV1_N, batch_size=PTV1_B)
+        model = build_model(cfg, torch.Generator().manual_seed(0))
+        Checkpointer(str(work / "model")).save(0, TrainState(model, cfg))
+        out_npz = work / "poses.npz"
+        _, seconds, counts = run_cli("serve ptv1", [
+            "serve", "--config", str(path), "--synthetic",
+            "--synthetic_frames", str(PTV1_FRAMES), "--num_points",
+            str(PTV1_N), "--batch_size", str(PTV1_B), "--work_dir",
+            str(work), "--output", str(out_npz)])
+        batches = -(-PTV1_FRAMES // PTV1_B)
+        check_launches("serve ptv1", counts, knn=9 * batches,
+                       fps=4 * batches, three_nn=4 * batches)
+        got = np.load(out_npz)
+        if got["R"].shape != (PTV1_FRAMES, cfg.n_max_parts, 3, 3) or not \
+                np.isfinite(got["R"]).all():
+            raise AssertionError(f"[cli serve ptv1] R {got['R'].shape}, "
+                                 f"finite {np.isfinite(got['R']).all()}")
+        pred = PosePredictor(cfg, work_dir=str(work), device=dev)
+        clouds = np.random.RandomState(0).rand(
+            PTV1_B, PTV1_N, 3).astype(np.float32)
+        for _ in range(3):               # eager, capture; then a replay
+            pred(clouds)
+        stages = pred.stage_ms()
+        split = {"knn": 0.0, "attn": 0.0, "rest": 0.0}
+        for name, ms in stages.items():
+            if name.startswith("ptv1."):
+                kind = name.rsplit(".", 1)[-1]
+                split[kind if kind in split else "rest"] += ms
+        log(f"[ptv1] serve --synthetic, {PTV1_FRAMES} clouds of {PTV1_N} in "
+            f"{seconds:.2f} s through the command; launches {counts}; a "
+            f"replayed call's device ms: backbone k-NN {split['knn']:.3f}, "
+            f"attention {split['attn']:.3f}, the rest {split['rest']:.3f}, "
+            f"heads {stages['forward']:.3f}, fit "
+            f"{sum(v for k, v in stages.items() if k.startswith('fit.')):.3f}"
+            f" ({len(stages)} stages)")
+    return {"cli serve ptv1": counts}
+
+
 def main() -> int:
     import torch
 
@@ -4075,7 +4183,7 @@ def main() -> int:
     log(f"[host] native library (labeling, ball renderer; g++): {found}")
 
     t0 = time.perf_counter()
-    # the eleven kernels and the card-limits probe's (phase 16)
+    # the twelve kernels and the card-limits probe's (phase 16)
     built = [*KERNELS.values(), *PROBE_KERNELS]
     seconds = build_all(built)
     logs = {k.source: k.build_log() for k in built}
@@ -4090,6 +4198,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--compiled"]:
         with phase("17 compiled programs"):
             compiled_programs(dev)
+        return 0
+    if sys.argv[1:2] == ["--ptv1"]:
+        with phase("18 Point Transformer"):
+            ptv1_serve(dev)
+            ptv1_knn_times(dev)
         return 0
 
     with phase("2 kernels"):
@@ -4125,6 +4238,9 @@ def main() -> int:
         paths.update(timing_tools(dev, profile_rows))
     with phase("17 compiled programs"):
         paths.update(compiled_programs(dev))
+    with phase("18 Point Transformer"):
+        paths.update(ptv1_serve(dev))
+        kernels["knn"] = ptv1_knn_times(dev)
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -17,7 +17,9 @@ from articulated_pose_tpu import config as jconfig
 from articulated_pose_tpu_torch import config
 
 CFG = pathlib.Path(__file__).resolve().parents[1] / "cfg"
-SHARED = [f.name for f in dataclasses.fields(config.NetworkConfig)]
+# the port's fields but its own (PORT_FIELDS, which JAX's config lacks)
+SHARED = [f.name for f in dataclasses.fields(config.NetworkConfig)
+          if f.name not in config.PORT_FIELDS]
 
 
 @pytest.fixture
@@ -35,6 +37,18 @@ def test_jax_fields_match_the_jax_dataclass():
     assert config.JAX_FIELDS == tuple(
         f.name for f in dataclasses.fields(jconfig.NetworkConfig))
     assert set(SHARED) <= set(config.JAX_FIELDS)
+    assert not set(config.PORT_FIELDS) & set(config.JAX_FIELDS)
+
+
+def test_the_port_only_key_is_the_ports_alone(tmp_path, no_yaml):
+    """`backbone` is read by the port; the JAX package refuses it."""
+    path = tmp_path / "cfg.yml"
+    path.write_text("backbone: point_transformer\n")
+    assert config.load_config(str(path)).backbone == "point_transformer"
+    assert config.load_config().backbone == "pointnet2"
+    sys.modules.pop("yaml")
+    with pytest.raises(ValueError, match="unknown config keys"):
+        jconfig.load_config(str(path))
 
 
 @pytest.mark.parametrize("name", ["network_config.yml",

@@ -22,7 +22,10 @@ first hits late in the cloud, N up to 100003, and at the bucket path's
 B=64; the rank-select ball query and the packed 3-NN at the stage
 profiler's B=64; the 3-NN kernel at every (G, C), staged and streamed,
 with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
-every path shape and at (4, 2048 <- 16384).  One train step at the
+every path shape and at (4, 2048 <- 16384); the k-NN kernel at the
+Point Transformer cell's nine searches (B=16) and at k = 1, 3, 8, 16 on
+every lane count with planted ties, and the Point Transformer predictor
+replayed against eager.  One train step at the
 reference widths is held against the same step on the CPU.  A captured
 program's stage mark times a known spin of the card within 5 % of
 eager events, and the replayed predictor reads its four stages; its
@@ -36,7 +39,7 @@ import pytest
 import torch
 
 from articulated_pose_tpu_torch.ops.kernels import (KERNELS, ball_query, fps,
-                                                    three_nn)
+                                                    knn, three_nn)
 
 pytestmark = pytest.mark.cuda
 
@@ -1102,3 +1105,91 @@ def test_replayed_train_step_equals_eager(dev):
                 assert err <= 1e-4 * v.abs().max().item() + 1e-12, (s, name)
     entry, = step.program.captured.values()
     assert entry.replays == 2
+
+
+# ---- the k-NN kernel (csrc/knn.cu) ----------------------------------------
+# the Point Transformer cell's nine searches at B=16, (M queries, N
+# points, k): the five levels' self searches and the four transitions
+# down's
+KNN_CELL_SHAPES = [(8192, 8192, 8), (2048, 8192, 16), (2048, 2048, 16),
+                   (512, 2048, 16), (512, 512, 16), (128, 512, 16),
+                   (128, 128, 16), (32, 128, 16), (32, 32, 16)]
+
+
+def _knn_plain(k, xyz, q):
+    """The plain version one cloud at a time (its distance matrix for
+    the whole batch would take 4.3 GB at 16 x 8192 x 8192)."""
+    out = [knn.knn_plain(k, xyz[b:b + 1], q[b:b + 1])
+           for b in range(len(xyz))]
+    return torch.cat([d for d, _ in out]), torch.cat([i for _, i in out])
+
+
+@pytest.mark.parametrize("M,N,k", KNN_CELL_SHAPES)
+def test_knn_matches_plain_at_the_cell_shapes(dev, M, N, k):
+    """The queries are points of the cloud, as the backbone's are (FPS
+    picks or the level itself): each finds itself at distance 0."""
+    xyz = _cloud(M + N, 16, N, dev)
+    q = xyz[:, ::N // M].contiguous()
+    before = KERNELS["knn"].launches
+    d, i = knn.knn(k, xyz, q)
+    torch.cuda.synchronize()
+    assert KERNELS["knn"].launches == before + 1
+    dp, ip = _knn_plain(k, xyz, q)
+    assert torch.equal(i, ip)
+    assert torch.equal(d, dp)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 16])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_knn_planted_ties_every_lane_count(dev, k, lanes):
+    """A grid with every point three times in a shuffled order: each
+    query's distances tie in threes, spread over the lanes' slices and
+    over the 1024-point tiles; the lowest index wins."""
+    g = np.stack(np.meshgrid(*[np.arange(8.0)] * 3), -1).reshape(-1, 3)
+    pts = np.concatenate([g, g, g]) * 0.125
+    order = np.random.RandomState(k + lanes).permutation(len(pts))
+    xyz = torch.from_numpy(pts[order][None].astype(np.float32)).to(dev)
+    xyz = xyz.expand(2, -1, -1).contiguous()
+    q = xyz[:, ::7].contiguous()
+    d, i = knn.launch(k, xyz, q, lanes)
+    dp, ip = knn.knn_plain(k, xyz, q)
+    assert torch.equal(i, ip)
+    assert torch.equal(d, dp)
+
+
+def test_knn_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    xyz = _cloud(3, 2, 64, dev)
+    with pytest.raises(ValueError, match="outside"):
+        knn.knn(17, xyz, xyz)
+    with pytest.raises(ValueError, match="exceeds"):
+        knn.knn(8, xyz[:, :4].contiguous(), xyz)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn.knn(4, xyz[:, ::2], xyz)
+
+
+def test_point_transformer_predictor_replays_the_eager_program(dev):
+    """Tiny widths on the card: the first call captures, the next two
+    replay, each output torch.equal to the eager `forward_fit`; the
+    replayed stages carry the backbone's marks, each name once."""
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
+
+    cfg = NetworkConfig(backbone="point_transformer", backbone_preset="tiny",
+                        compute_dtype="bfloat16")
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(5).rand(3, 4, 512, 3).astype(np.float32)
+    d = pred.draws(4)
+    leaves = torch.utils._pytree.tree_leaves
+    for c in clouds:
+        got = pred._run(c)[0]
+        with torch.no_grad():
+            want = forward_fit(pred.model, torch.from_numpy(c).to(dev),
+                               d.part, d.joint, pred.pose_cfg)
+        for a, b in zip(leaves(got), leaves(want)):
+            assert torch.equal(a, b)
+    names = list(pred.stage_ms())
+    assert len(names) == len(set(names))
+    assert {"ptv1.e1.knn", "ptv1.e2.td.knn", "ptv1.e1.b1.attn",
+            "ptv1.d1.b1.attn", "ptv1.out", "forward"} <= set(names)

@@ -21,7 +21,7 @@ from articulated_pose_tpu.ops.pallas.ball_query_butterfly import \
 from articulated_pose_tpu.ops.pallas.fps import farthest_point_sample2_pallas
 from articulated_pose_tpu.ops.pallas.three_nn import three_nn_pallas
 from articulated_pose_tpu_torch.ops import core
-from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
+from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps, knn,
                                                     launch_counts,
                                                     reset_launch_counts,
                                                     three_nn)
@@ -209,6 +209,9 @@ class TestDispatch:
         d, j = three_nn.three_nn_packed(xyz, x1)
         dp, jp = three_nn.three_nn_packed_plain(xyz, x1)
         assert torch.equal(d, dp) and torch.equal(j, jp)
+        d, j = knn.knn(8, xyz, x1)
+        dp, jp = knn.knn_plain(8, xyz, x1)
+        assert torch.equal(d, dp) and torch.equal(j, jp)
         assert launch_counts() == {"fps2": 0, "fps": 0, "ball_query_group": 0,
                                    "ball_query_group_packed": 0,
                                    "ball_query_idx": 0,
@@ -216,7 +219,7 @@ class TestDispatch:
                                    "ball_query_point_grouped": 0,
                                    "ball_query_group_bucket": 0,
                                    "three_nn": 0, "three_nn_stream": 0,
-                                   "three_nn_packed": 0}
+                                   "three_nn_packed": 0, "knn": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
@@ -242,3 +245,5 @@ class TestDispatch:
             three_nn.three_nn_stream(xyz, xyz)
         with pytest.raises(ValueError, match="CUDA"):
             three_nn.three_nn_packed(xyz, xyz)
+        with pytest.raises(ValueError, match="CUDA"):
+            knn.knn(4, xyz, xyz)
