@@ -14,7 +14,11 @@ of the mixed-precision policy (ancsh.py:73-96).  The heads take their
 input width from the backbone: PointNet++'s fc1 (128 at the reference
 widths) or the Point Transformer's segmentation feature (32;
 `models/point_transformer.py`), which a `PointTransformerSpec` as
-`backbone_spec` selects.
+`backbone_spec` selects.  `folded_bn_layers` counts the batch norms
+that a forward in the model's current mode folds into their Linear
+(`layers.PointConv`): 17 in the reference PointNet++ network in eval
+mode, 0 in training and on the Point Transformer, whose own norms are
+not `PointConv`s; the joint head's two are never folded (`JointHead`).
 """
 
 from __future__ import annotations
@@ -46,13 +50,19 @@ class JointHead(nn.Module):
 
     Its dropout rate is Flax's default, 0.5, whatever the config says:
     JAX's ANCSHModel builds its JointHead without passing one
-    (ancsh.py:131)."""
+    (ancsh.py:131).  fc3_0 and fc3_1 keep their batch norm apart from
+    the Linear in eval mode too (`PointConv(fold_bn=False)`), on every
+    backbone: the four joint outputs all come out of them, and a
+    rounding moved there reaches each output (on the Point Transformer
+    at the CPU tests' widths, joint_axis by 0.15 in bf16 and 7e-6 in
+    f32), so the head rounds where a plain forward that normalises
+    after the Linear does."""
 
     def __init__(self, in_features: int, n_parts: int, dtype):
         super().__init__()
         self.dropout_rate = 0.5
-        self.fc3_0 = PointConv(in_features, 128, dtype=dtype)
-        self.fc3_1 = PointConv(128, 128, dtype=dtype)
+        self.fc3_0 = PointConv(in_features, 128, dtype=dtype, fold_bn=False)
+        self.fc3_1 = PointConv(128, 128, dtype=dtype, fold_bn=False)
         self.fc4_0 = _head(128, 3, dtype)
         self.fc4_1 = _head(128, 3, dtype)
         self.fc4_2 = _head(128, 1, dtype)
@@ -121,6 +131,13 @@ class ANCSHModel(nn.Module):
             self.add_module(f"fc2_{i}", _head(cin, d, hdt))
         if pred_joint:
             self.joint_net = JointHead(width, K, hdt)
+
+    @property
+    def folded_bn_layers(self) -> int:
+        """The batch norms a forward in the current mode folds into
+        their Linear (`PointConv.folded`)."""
+        return sum(isinstance(m, PointConv) and m.folded
+                   for m in self.modules())
 
     def forward(self, P: torch.Tensor, *, bn_momentum=0.9,
                 generator: Optional[torch.Generator] = None

@@ -10,13 +10,18 @@ momentum given at run time; `dropout` is Flax's, its mask drawn from a
 given torch.Generator.  Under a sharded train step
 (`parallel/mesh.py::shard_train_setup`) batch norm reduces its
 statistics over the 'data' ranks and a layer marked by `state_shardings`
-computes its block of output features on the 'model' axis.
+computes its block of output features on the 'model' axis.  In eval mode
+a `PointConv`'s batch norm is folded into its Linear on every call (its
+running statistics are constants there), so the layer runs one GEMM and
+no elementwise pass of its own but the ReLU; in training mode, on a
+column-sharded layer, without a batch norm or on a layer built with
+`fold_bn=False` nothing is folded.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -92,26 +97,59 @@ class PointConv(nn.Module):
     batch norm emits `out_dtype` (None = dtype), or without one the
     output is cast to it (layers.py:75-98).  With `columns` set (a
     `ColumnShard`), `dense.weight` holds this rank's block of output
-    features and the Linear's output is assembled to full width."""
+    features and the Linear's output is assembled to full width.
+
+    In eval mode, with a batch norm and no `columns`, the norm is folded
+    into the Linear from the current parameters on every call, in f32
+    (`fold`); W' and b' are rounded to `dtype` as the unfolded weight
+    is, one Linear runs, and its output is cast to `out_dtype` where
+    that differs.  Nothing is cached, so a captured graph folds whatever
+    the parameters hold when it replays.  Training mode, a
+    column-sharded layer, a layer without a batch norm and one built
+    with `fold_bn=False` run the Linear and the norm apart; `folded`
+    says which path a call takes now."""
 
     def __init__(self, in_features: int, features: int, use_bn: bool = True,
                  relu: bool = True, dtype: torch.dtype = torch.float32,
-                 out_dtype: Optional[torch.dtype] = None):
+                 out_dtype: Optional[torch.dtype] = None,
+                 fold_bn: bool = True):
         super().__init__()
         self.dtype = dtype
         self.out_dtype = dtype if out_dtype is None else out_dtype
         self.relu = relu
+        self.fold_bn = fold_bn
         self.dense = nn.Linear(in_features, features)
         self.bn = (ScheduledBatchNorm(features, self.out_dtype) if use_bn
                    else None)
         self.columns = None
 
+    @property
+    def folded(self) -> bool:
+        """Whether a call folds the norm into the Linear: eval mode, a
+        batch norm, no column shard and `fold_bn`."""
+        return (self.bn is not None and self.fold_bn and not self.training
+                and self.columns is None)
+
+    def fold(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(W', b') in f32 from the current parameters: s = weight *
+        rsqrt(running_var + eps), W' = dense.weight * s[:, None],
+        b' = (dense.bias - running_mean) * s + bias."""
+        bn = self.bn
+        s = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+        return (self.dense.weight * s[:, None],
+                (self.dense.bias - bn.running_mean) * s + bn.bias)
+
     def forward(self, x: torch.Tensor, bn_momentum=0.9) -> torch.Tensor:
         dt = self.dtype
-        linear = F.linear if self.columns is None else self.columns.linear
-        y = linear(x.to(dt), self.dense.weight.to(dt), self.dense.bias.to(dt))
-        y = (self.bn(y, bn_momentum) if self.bn is not None
-             else y.to(self.out_dtype))
+        if self.folded:
+            w, b = self.fold()
+            y = F.linear(x.to(dt), w.to(dt), b.to(dt)).to(self.out_dtype)
+        else:
+            linear = F.linear if self.columns is None else self.columns.linear
+            y = linear(x.to(dt), self.dense.weight.to(dt),
+                       self.dense.bias.to(dt))
+            y = (self.bn(y, bn_momentum) if self.bn is not None
+                 else y.to(self.out_dtype))
         return F.relu(y) if self.relu else y
 
 

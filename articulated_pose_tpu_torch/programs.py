@@ -23,10 +23,12 @@ def resolve_device(name: str, tool: str) -> torch.device:
     return device
 
 
-def bench_model(device: torch.device, spec=None):
+def bench_model(device: torch.device, spec=None,
+                dtype: torch.dtype = torch.bfloat16):
     """bench.py's model (bench.py:103-118): ANCSH at K=3, mixed, joint
     heads, bf16 trunk, the packed kernel ball query, eval mode, weights
-    from seed 0; `spec` gives other widths (the tests' tiny ones)."""
+    from seed 0; `spec` gives other widths (the tests' tiny ones), and
+    `dtype` another trunk precision with the same weights."""
     import dataclasses
 
     from articulated_pose_tpu_torch.models.ancsh import ANCSHModel
@@ -34,7 +36,7 @@ def bench_model(device: torch.device, spec=None):
     from articulated_pose_tpu_torch.models.pointnet2 import BackboneSpec
 
     model = ANCSHModel(n_max_parts=3, mixed=True, pred_joint=True,
-                       dtype=torch.bfloat16,
+                       dtype=dtype,
                        backbone_spec=dataclasses.replace(
                            spec or BackboneSpec(), ball_query_impl="pallas",
                            ball_query_packed=True))

@@ -12,6 +12,9 @@
   `probe_card` raises on the CPU, and its FMA chain's plain version is
   the closed form of the chain.
 - The session joins each profiled stage with its count's floors.
+- The fold tool (`ab/bn_fold.py`) reads its rounding on the CPU, leaves
+  the model's fold choices as it found them, and reads a gap array
+  scaled by a factor as that factor one way and its inverse the other.
 """
 
 import numpy as np
@@ -23,12 +26,14 @@ from articulated_pose_tpu.data.synthetic import \
 from articulated_pose_tpu_torch import (probe_card, profile_stages,
                                         profile_train_stages, roofline,
                                         roofline_session)
-from articulated_pose_tpu_torch.ab import batch, batch_joints, overlap
+from articulated_pose_tpu_torch.ab import (batch, batch_joints, bn_fold,
+                                          overlap)
 from articulated_pose_tpu_torch.ab.common import BenchProgram, fits_equal
 from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
                                                          BackboneSpec)
 from articulated_pose_tpu_torch.ops.kernels import probe
 from articulated_pose_tpu_torch.pose.pipeline import fit_frame_batch
+from articulated_pose_tpu_torch.programs import bench_model
 
 TINY = BackboneSpec(**TINY_WIDTHS)
 CPU = torch.device("cpu")
@@ -97,10 +102,46 @@ def test_batch_joints_frames_are_the_jax_scripts():
         np.stack([f["cls_gt"] for f in frames]).astype(int))
 
 
+def test_bn_fold_reads_the_rounding_on_the_cpu():
+    args = bn_fold.parser().parse_args(["--device", "cpu", "--batch", "2",
+                                        "--points", str(N)])
+    res = bn_fold.run(args, spec=TINY)
+    assert res["card"] is None and "fold_ms" not in res
+    assert res["layers"] > 0
+    for state in ("as_built", "calibrated"):
+        r = res["rounding"][state]
+        assert set(r) == {"ratio", "reverse", "median", "worst_head"}
+        assert r["worst_head"] in bn_fold.HEADS
+        for k in ("ratio", "reverse", "median"):
+            assert np.isfinite(r[k]) and r[k] > 0, (state, k)
+
+
+def test_bn_fold_keeps_the_models_fold_choices():
+    model = bench_model(CPU, TINY)
+    kept = {n: m.fold_bn for n, m in model.named_modules()
+            if hasattr(m, "fold_bn")}
+    assert not all(kept.values()) and any(kept.values())
+    with bn_fold.norms_apart(model):
+        assert model.folded_bn_layers == 0
+    assert kept == {n: m.fold_bn for n, m in model.named_modules()
+                    if hasattr(m, "fold_bn")}
+
+
+def test_bn_fold_readings_of_scaled_gaps():
+    g = np.random.RandomState(0).rand(len(bn_fold.HEADS), 5) + 0.5
+    same = bn_fold.readings(g, g)
+    assert same["ratio"] == same["reverse"] == same["median"] == 1.0
+    twice = bn_fold.readings(2 * g, g)
+    assert twice["ratio"] == pytest.approx(2.0)
+    assert twice["median"] == pytest.approx(2.0)
+    assert twice["reverse"] == pytest.approx(0.5)
+
+
 TOOLS = {"roofline": roofline.main, "roofline_session": roofline_session.main,
          "profile_train_stages": profile_train_stages.main,
          "ab.overlap": overlap.main, "ab.batch": batch.main,
-         "ab.batch_joints": batch_joints.main, "probe_card": probe_card.main}
+         "ab.batch_joints": batch_joints.main, "probe_card": probe_card.main,
+         "ab.bn_fold": bn_fold.main}
 
 
 @pytest.mark.parametrize("tool", list(TOOLS))

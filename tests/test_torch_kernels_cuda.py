@@ -25,7 +25,9 @@ with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
 every path shape and at (4, 2048 <- 16384); the k-NN kernel at the
 Point Transformer cell's nine searches (B=16) and at k = 1, 3, 8, 16 on
 every lane count with planted ties, and the Point Transformer predictor
-replayed against eager.  One train step at the
+replayed against eager.  The served bf16 program's replay folds the
+batch-norm state it finds: after new statistics are loaded in place it
+equals a fresh eager call.  One train step at the
 reference widths is held against the same step on the CPU.  A captured
 program's stage mark times a known spin of the card within 5 % of
 eager events, and the replayed predictor reads its four stages; its
@@ -931,6 +933,59 @@ def test_replayed_predictor_equals_eager(dev):
             assert torch.equal(a, b)
     entry, = pred._programs[0].captured.values()
     assert entry.replays == 3
+
+
+def test_replay_folds_the_batch_norm_state_it_finds(dev):
+    """The served bf16 program folds its PointConvs' batch norms inside
+    the captured graph: a replay equals an eager call of the same model,
+    and after new batch-norm statistics are loaded in place (the
+    predictor's model.load_state_dict) the next replay, with no new
+    capture, equals a fresh eager call on them."""
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.models.layers import PointConv
+    from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
+
+    def with_stats(model, seed):
+        g = torch.Generator().manual_seed(seed)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        for k, v in sd.items():
+            if k.endswith("bn.running_mean"):
+                sd[k] = torch.rand(v.shape, generator=g) * 0.4 - 0.2
+            elif k.endswith("bn.running_var"):
+                sd[k] = torch.rand(v.shape, generator=g) * 1.5 + 0.5
+            elif k.endswith("bn.weight"):
+                sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        return sd
+
+    cfg = _tiny_cfg(batch_size=4, compute_dtype="bfloat16",
+                    ball_query_packed=True)
+    model = build_model(cfg, torch.Generator().manual_seed(0))
+    pred = PosePredictor(cfg, state_dict=with_stats(model, 1), device=dev)
+    clouds = np.random.RandomState(8).rand(4, 512, 3).astype(np.float32)
+    P = torch.from_numpy(clouds).to(dev)
+    d = pred.draws(4)
+    leaves = torch.utils._pytree.tree_leaves
+
+    def eager():
+        with torch.no_grad():
+            return forward_fit(pred.model, P, d.part, d.joint, pred.pose_cfg)
+
+    pred._run(clouds)                       # eager, then the capture
+    assert pred.model.folded_bn_layers == sum(
+        isinstance(m, PointConv) and m.bn is not None and m.fold_bn
+        for m in pred.model.modules()) > 0
+    first = pred._run(clouds)[0]
+    for a, b in zip(leaves(first), leaves(eager())):
+        assert torch.equal(a, b)
+    pred.model.load_state_dict(with_stats(model, 2))
+    second = pred._run(clouds)[0]
+    want = eager()
+    for a, b in zip(leaves(second), leaves(want)):
+        assert torch.equal(a, b)
+    assert not torch.equal(first["pred"]["W"], second["pred"]["W"])
+    program = pred._programs[0]
+    entry, = program.captured.values()
+    assert program.captures == 1 and entry.replays == 2
 
 
 def test_a_capture_runs_no_garbage_collection(dev):
