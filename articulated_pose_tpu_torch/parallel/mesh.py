@@ -5,18 +5,8 @@ JAX lays a (data, model) `jax.sharding.Mesh` over the devices and lets
 neither, so the port keeps the mesh as a grid of devices and places the
 work itself, under JAX's names, specs, rules and error messages:
 
-- `make_mesh`, `batch_sharding`, `state_shardings`: as JAX's.
-- `shard_serving_setup`: data-parallel serving.  Each shard of the
-  'data' axis runs the forward and the fit on its rows, on its device.
-  The host queues every shard's work before it reads any result back,
-  so shards on different cards run at once; one host thread does it,
-  since the fit is bound by the host's launches and threads would only
-  contend for the interpreter's lock (two threads on one card served at
-  a quarter of one thread's rate; PERF.md).  JAX replicates the
-  variables and shards nothing on 'model' when serving (its shard_map
-  maps 'data' alone), so the devices along 'model' of one data shard
-  would compute the same rows: the port computes each shard once, on
-  the shard's first device.
+- `make_mesh`, `batch_sharding`, `state_shardings`: as JAX's.  The
+  data-parallel served call is `serving.PosePredictor`'s own.
 - `shard_train_setup`: the train step with one process per mesh device
   over `torch.distributed` (`parallel/launch.py::run_ranks` starts such
   a world).  'data' splits the batch: batch norm reduces its statistics
@@ -37,11 +27,9 @@ or sharing a card; an NCCL world, a card a rank, has not been run.
 
 from __future__ import annotations
 
-import contextlib
-import copy
 import dataclasses
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +42,6 @@ from articulated_pose_tpu_torch.train.state import (TrainState,
                                                     dropout_generator,
                                                     global_norm,
                                                     loss_and_grads, to_device)
-from articulated_pose_tpu_torch.utils.profiling import span
 
 # the parameters whose output features are worth splitting on 'model':
 # the global SA stage's wide layers and the first FP stage (JAX's
@@ -187,52 +174,6 @@ def state_shardings(state: TrainState, mesh: Mesh) -> Dict:
            for key in ("model", "mu", "nu")}
     out["count"] = out["step"] = ()
     return out
-
-
-def shard_serving_setup(run_fn: Callable, model: torch.nn.Module,
-                        mesh: Mesh):
-    """Data-parallel inference over the mesh's 'data' axis.
-
-    `run_fn(model, P, shard, draws)` is the forward + pose-fit body: P
-    the shard's rows as a float32 tensor on its device, `shard` its index
-    on 'data' (the RANSAC draws differ by shard, as JAX folds its key
-    with the data index), `draws` the caller's draws for the shard or
-    None.  It runs under `torch.no_grad()` with the shard's device
-    current, and should leave its results on the device: every shard's
-    work is queued before the caller reads any of it.
-
-    Returns (sharded_run, replicas, batch_sharding):
-    sharded_run(clouds, draws=None) takes the whole (B, N, 3) host batch,
-    and optionally one draws per shard, and returns each shard's result
-    in shard order; `replicas` holds the model once per device (`model`
-    itself on its own device), the shards on one device sharing it: an
-    eval forward changes nothing in the model.
-    """
-    sharding = batch_sharding(mesh)
-    devices = sharding.devices
-    own = next(model.parameters()).device
-    replicas = {}
-    for d in devices:
-        if d not in replicas:
-            replicas[d] = model if d == own else copy.deepcopy(model).to(d)
-
-    def sharded_run(clouds, draws: Optional[Sequence] = None) -> list:
-        with span("predictor.h2d"):
-            clouds = np.asarray(clouds, np.float32)
-            rows = [sharding.rows(len(clouds), i)
-                    for i in range(len(devices))]
-            inputs = [torch.as_tensor(clouds[r], device=d)
-                      for r, d in zip(rows, devices)]
-        draws = draws if draws is not None else [None] * len(devices)
-        outs = []
-        with torch.no_grad():
-            for shard, (d, P) in enumerate(zip(devices, inputs)):
-                with (torch.cuda.device(d) if d.type == "cuda"
-                      else contextlib.nullcontext()):
-                    outs.append(run_fn(replicas[d], P, shard, draws[shard]))
-        return outs
-
-    return sharded_run, replicas, sharding
 
 
 def _rank_of(mesh: Mesh) -> int:

@@ -14,7 +14,15 @@ unsharded predictor does.
 Each data shard runs the forward and the fit as one captured program
 (`compiled.py`), as the JAX server compiles them as one (serving.py:
 84-103): on the card a shard's first batch of a shape is run and
-captured, and every later one replays the graph.
+captured, and every later one replays the graph.  One host thread
+queues every shard's program before any result is read back, so shards
+on different cards run at once; threads would only contend for the
+interpreter's lock, since the fit is bound by the host's launches (two
+threads on one card served at a quarter of one thread's rate).
+JAX replicates the variables and shards nothing on 'model' when serving
+(its shard_map maps 'data' alone), so the devices along 'model' of one
+data shard would compute the same rows: the port computes each shard
+once, on the shard's first device.
 
 Each field of a call's `PoseResult` is one host tensor, and every
 shard's array is copied once, into its rows.  From the card the tensor
@@ -40,10 +48,12 @@ was reused.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,8 +61,8 @@ import torch
 from articulated_pose_tpu_torch.compiled import compiled
 from articulated_pose_tpu_torch.config import NetworkConfig
 from articulated_pose_tpu_torch.models.ancsh import build_model
-from articulated_pose_tpu_torch.parallel.mesh import (Mesh, make_mesh,
-                                                      shard_serving_setup)
+from articulated_pose_tpu_torch.parallel.mesh import (Mesh, batch_sharding,
+                                                      make_mesh)
 from articulated_pose_tpu_torch.pose.pipeline import (PoseDraws, PoseFitConfig,
                                                       fit_frame_batch)
 from articulated_pose_tpu_torch.train.state import shard_seed
@@ -72,15 +82,17 @@ def _host_allocs() -> int:
 
 def forward_fit(model, P: torch.Tensor, part: torch.Tensor,
                 joint: torch.Tensor, pose_cfg: PoseFitConfig
-                ) -> Dict[str, Dict[str, torch.Tensor]]:
+                ) -> Dict[str, Any]:
     """The forward and the fit of one batch (or shard) on P's device with
-    the draws (part, joint), queued: the outputs stay there.  The body of
-    each shard's program in `PosePredictor`; eager when called."""
+    the draws (part, joint), queued: the outputs stay there, the
+    segmentation (W's argmax) among them.  The body of each shard's
+    program in `PosePredictor`; eager when called."""
     pred = model(P)
+    segmentation = pred["W"].argmax(dim=-1)
     stage("forward")
     fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
                            P, PoseDraws(part=part, joint=joint), pose_cfg)
-    return {"pred": pred, "fits": fits}
+    return {"pred": pred, "fits": fits, "segmentation": segmentation}
 
 
 @dataclasses.dataclass
@@ -115,10 +127,9 @@ class PosePredictor:
     `device`, each call splits the batch over the mesh's 'data' axis and
     runs the forward and the fit of each shard on that shard's device,
     with that shard's draws (`draws(b, shard)`), then gathers the answers
-    in shard order (`parallel/mesh.py::shard_serving_setup`).  A batch
-    that does not divide raises JAX's ValueError.  Without one it serves
-    through a mesh of one shard on `device`: the unsharded predictor is
-    that mesh.
+    in shard order.  A batch that does not divide raises JAX's
+    ValueError.  Without one it serves through a mesh of one shard on
+    `device`: the unsharded predictor is that mesh.
     """
 
     def __init__(self, config: NetworkConfig,
@@ -155,7 +166,10 @@ class PosePredictor:
             state_dict = torch.load(ckpt_path, map_location="cpu",
                                     weights_only=True)
         self.config = config
-        self.device = mesh.devices.flat[0]
+        self.mesh = mesh
+        self.batch_sharding = batch_sharding(mesh)
+        devices = self.batch_sharding.devices
+        self.device = devices[0]
         self.model = build_model(config, device=self.device)
         self.model.load_state_dict(state_dict)
         spec = config.category_spec
@@ -166,16 +180,18 @@ class PosePredictor:
             inlier_th=config.ransac_inlier_th,
             joint_types=tuple(spec.joint_types))
         self.use_nonlinear = use_nonlinear and config.pred_joint
-        self.mesh = mesh
-        self._run, _, self.batch_sharding = shard_serving_setup(
-            self._serve_shard, self.model, mesh)
-        self._generators = [torch.Generator(device=d)
-                            for d in self.batch_sharding.devices]
-        # each shard's forward + fit, one program (and static buffers) a
-        # shard, so that shards queued on one device keep their inputs
+        # each data shard's model, generator and forward + fit: the model
+        # once a device (an eval forward changes nothing in it), one
+        # program (and static buffers) a shard, so that shards queued on
+        # one device keep their inputs
+        replicas = {self.device: self.model}
+        for d in devices:
+            if d not in replicas:
+                replicas[d] = copy.deepcopy(self.model).to(d)
+        self._models = [replicas[d] for d in devices]
+        self._generators = [torch.Generator(device=d) for d in devices]
         self._programs = [compiled(functools.partial(
-            forward_fit, pose_cfg=self.pose_cfg))
-            for _ in self.batch_sharding.devices]
+            forward_fit, pose_cfg=self.pose_cfg)) for _ in devices]
         self._default_draws: Dict[Tuple[int, int], PoseDraws] = {}
         self.calls = 0          # calls served
         self.d2h_bytes = 0      # results copied to the host
@@ -195,16 +211,34 @@ class PosePredictor:
         g.manual_seed(shard_seed(self.config.seed, shard))
         return PoseDraws.sample(batch, self.pose_cfg, g, g.device)
 
-    def _serve_shard(self, model, P: torch.Tensor, shard: int,
-                     draws: Optional[PoseDraws]):
-        """Data shard `shard`'s program on its rows P, with the caller's
-        draws or the shard's own, drawn once a batch size."""
-        if draws is None:
-            key = (P.shape[0], shard)
-            if key not in self._default_draws:
-                self._default_draws[key] = self.draws(*key)
-            draws = self._default_draws[key]
-        return self._programs[shard](model, P, draws.part, draws.joint)
+    @torch.no_grad()
+    def _run(self, clouds, draws: Optional[Sequence[PoseDraws]] = None
+             ) -> list:
+        """Each data shard's `forward_fit` outputs, in shard order, left
+        on its device: its rows of the (B, N, 3) host batch copied there,
+        then its program queued with the caller's draws for the shard or
+        its own, drawn once a batch size."""
+        devices = self.batch_sharding.devices
+        with span("predictor.h2d"):
+            clouds = np.asarray(clouds, np.float32)
+            inputs = [torch.as_tensor(
+                clouds[self.batch_sharding.rows(len(clouds), i)], device=d)
+                for i, d in enumerate(devices)]
+        outs = []
+        for shard, (d, P) in enumerate(zip(devices, inputs)):
+            with (torch.cuda.device(d) if d.type == "cuda"
+                  else contextlib.nullcontext()):
+                if draws is not None:
+                    shard_draws = draws[shard]
+                else:
+                    key = (len(P), shard)
+                    if key not in self._default_draws:
+                        self._default_draws[key] = self.draws(*key)
+                    shard_draws = self._default_draws[key]
+                outs.append(self._programs[shard](
+                    self._models[shard], P, shard_draws.part,
+                    shard_draws.joint))
+        return outs
 
     def _host(self, arrays, pinned: bool) -> torch.Tensor:
         """One host tensor holding the shards' arrays end to end, each
@@ -232,7 +266,7 @@ class PosePredictor:
             "R": [f[f"{prefix}_R"] for f in fits],
             "scale": [f[f"{prefix}_s"] for f in fits],
             "t": [f[f"{prefix}_t"] for f in fits],
-            "segmentation": [p["pred"]["W"].argmax(dim=-1) for p in parts],
+            "segmentation": [p["segmentation"] for p in parts],
             "part_counts": [f["part_counts"] for f in fits]}
         raw = {k: [p["pred"][k] for p in parts] for k in parts[0]["pred"]}
         on_card = any(d.type == "cuda" for d in self.batch_sharding.devices)
@@ -250,7 +284,6 @@ class PosePredictor:
         return PoseResult(**{k: t.numpy() for k, t in fields.items()},
                           raw={k: t.numpy() for k, t in raw.items()})
 
-    @torch.no_grad()
     def __call__(self, clouds, draws=None) -> PoseResult:
         """Poses of a (B, N, 3) batch.  `draws` replaces the predictor's
         own: a PoseDraws on a mesh of one shard, or a sequence of one per

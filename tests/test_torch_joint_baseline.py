@@ -173,15 +173,37 @@ def test_evaluate_matches_jax(setup, tmp_path):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4)
 
 
+def fixed_batch_loss(model, batches):
+    """The training loss summed over fixed batches, with batch norm on
+    each batch's statistics and dropout off; momentum 1 leaves the
+    running statistics as they are."""
+    rate, model.backbone.dropout_rate = model.backbone.dropout_rate, 0.0
+    model.train()
+    try:
+        with torch.no_grad():
+            return sum(float(sum(v.mean() for v in reg.direct_joint_loss(
+                model(b["P"], bn_momentum=1.0),
+                b["joint_params_gt"]).values())) for b in batches)
+    finally:
+        model.backbone.dropout_rate = rate
+
+
 def test_trainer_fits_checkpoints_and_reports(tmp_path):
+    """12 steps of fit lower the training loss, read on the same two
+    batches before and after (each step's own loss is another batch's,
+    under its own dropout); then the checkpoint and the report."""
     cfg = load_config(category="eyeglasses", batch_size=2, num_points=N,
                       n_max_parts=K)
     data = frames(4, seed=5)
+    fixed = [{k: torch.as_tensor(v) for k, v in b.items()}
+             for b in BatchIterator(4, lambda i: data[i], 2, shuffle=False)]
     it = BatchIterator(4, lambda i: data[i], 2, seed=0)
     tr = jb.JointBaselineTrainer(cfg, str(tmp_path), device="cpu")
-    first = tr.fit(it, max_steps=1)
+    before = fixed_batch_loss(tr.model, fixed)
+    tr.fit(it, max_steps=1)
+    assert tr.step == 1
     last = tr.fit(it, max_steps=12)
-    assert tr.step == 12 and last["total_loss"] < first["total_loss"]
+    assert tr.step == 12 and fixed_batch_loss(tr.model, fixed) < before
     assert set(last) == {"total_loss", "axis_loss", "orth_loss", "dist_loss"}
     tr2 = jb.JointBaselineTrainer(cfg, str(tmp_path), device="cpu")
     assert tr2.maybe_restore() == 12

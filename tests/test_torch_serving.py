@@ -138,6 +138,28 @@ class TestServedSlice:
         with pytest.raises(ValueError, match="exactly one"):
             PosePredictor(config.NetworkConfig(**kw))
 
+    def test_a_dropped_predictor_is_freed_without_gc(self):
+        """A predictor holds no reference to itself: when its last
+        reference goes, it and its programs (on the card, their graphs)
+        are freed at once, with no garbage collection."""
+        import gc
+        import weakref
+
+        kw, jcfg, flat = tiny_setup()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            pred = PosePredictor(config.NetworkConfig(**kw),
+                                 state_dict=state_dict_from_flax(flat),
+                                 pose_cfg=port_cfg(jcfg), device="cpu")
+            pred(clouds(2))
+            refs = [weakref.ref(pred), weakref.ref(pred._programs[0])]
+            del pred
+            assert [ref() for ref in refs] == [None, None]
+        finally:
+            if collecting:
+                gc.enable()
+
     def test_serves_on_the_card_by_default(self):
         # the default device is the card; without one it raises, naming
         # the device, rather than serving on the CPU
