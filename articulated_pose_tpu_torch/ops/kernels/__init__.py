@@ -6,14 +6,16 @@ loaded the first time a CUDA tensor reaches its wrapper
 `ball_query.ball_query_group_packed`, `ball_query.ball_query_idx`,
 `ball_query.ball_query_point`, `ball_query.ball_query_point_grouped`,
 `ball_query.ball_query_group_bucket`, `three_nn.three_nn`,
-`three_nn.three_nn_stream`, `three_nn.three_nn_packed`, `knn.knn`).
-Each entry but `knn` replaces one TPU kernel (`knn` replaces a
-`lax.top_k`, for the Point Transformer backbone), and each counts its
-own launches, also where two entries launch the same CUDA function.
+`three_nn.three_nn_stream`, `three_nn.three_nn_packed`, `knn.knn`,
+`joint_fit.joint_fit`).  Each entry but `knn` and `joint_fit` replaces
+one TPU kernel (`knn` replaces a `lax.top_k`, for the Point Transformer
+backbone; `joint_fit` the pose fit's joint stage, XLA ops in the JAX
+package), and each counts its own launches, also where two entries
+launch the same CUDA function.
 """
 
-from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps, knn,
-                                                    three_nn)
+from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
+                                                    joint_fit, knn, three_nn)
 
 # every kernel, by name
 KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
@@ -23,7 +25,8 @@ KERNELS = {k.name: k for k in (fps.KERNEL, fps.SINGLE_KERNEL,
                                 ball_query.POINT_GROUPED_KERNEL,
                                 ball_query.BUCKET_KERNEL, three_nn.KERNEL,
                                 three_nn.STREAM_KERNEL,
-                                three_nn.PACKED_KERNEL, knn.KERNEL)}
+                                three_nn.PACKED_KERNEL, knn.KERNEL,
+                                joint_fit.KERNEL)}
 
 
 def reset_launch_counts() -> None:
@@ -35,5 +38,5 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "ball_query", "fps", "knn", "three_nn", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "ball_query", "fps", "joint_fit", "knn", "three_nn",
+           "launch_counts", "reset_launch_counts"]

@@ -14,6 +14,12 @@ Per frame, batched over frames (B) and parts (K):
    hypotheses) and a damped Gauss-Newton refit on the best inlier sets
    ("nonlinear"); with `batch_joints`, joints of one type are solved in
    one batched call.  Part 0's pose comes from the first joint's solve.
+   On CUDA buffers with alternating hypotheses, every joint of the batch
+   is solved in one launch of the `joint_fit` kernel
+   (`ops/kernels/joint_fit.py`), which picks the hypotheses and inliers
+   this plain path (`joint_fit_plain`) picks; elsewhere (the CPU, "lm"
+   hypotheses) the plain path runs.  `JOINT_PROBLEMS` counts the
+   problems each solved.
 
 The randomness comes in as `PoseDraws`, so a run is a pure function of
 its inputs, and the parity tests can hand in the JAX package's draws.
@@ -29,6 +35,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from articulated_pose_tpu_torch.ops.kernels.joint_fit import (JointStage,
+                                                              joint_fit)
 from articulated_pose_tpu_torch.pose import umeyama
 from articulated_pose_tpu_torch.pose.lm import (
     joint_transformation_estimate, joint_transformation_estimate_alt)
@@ -253,13 +261,12 @@ def joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
     return fits, (frac0 + frac1) / 2.0
 
 
-def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
-                  cfg: PoseFitConfig, prismatic: bool):
-    """Joint-constrained RANSAC for one (base, moving-part) pair, batched
-    over frames (pipeline.py:256-320): `joint_hypotheses`, then the full
-    joint LM on the best one's inliers."""
-    fits, scores = joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1,
-                                    jt_axis, cfg, prismatic)
+def joint_inliers(fits, scores, src0, tgt0, m0, src1, tgt1, m1,
+                  cfg: PoseFitConfig):
+    """The best hypothesis (the first maximum of `scores`, (B, H)) and its
+    inlier sets over every row of both parts (pipeline.py:305-317): its
+    residual under `inlier_th`, or the part's mask where that leaves
+    fewer than 3 points.  -> (best (B,), w0 (B, P), w1 (B, P))."""
     best = scores.argmax(dim=-1)                                   # (B,)
 
     def inliers(R, s, t, src, tgt, m):
@@ -269,8 +276,29 @@ def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
         return torch.where(bi.sum(-1, keepdim=True) >= 3, bi, m > 0
                            ).to(src.dtype)
 
-    w0 = inliers(fits.R0, fits.s0, fits.t0, src0, tgt0, m0)
-    w1 = inliers(fits.R1, fits.s1, fits.t1, src1, tgt1, m1)
+    return (best, inliers(fits.R0, fits.s0, fits.t0, src0, tgt0, m0),
+            inliers(fits.R1, fits.s1, fits.t1, src1, tgt1, m1))
+
+
+def _joint_ransac(u0, u1, src0, tgt0, m0, src1, tgt1, m1, jt_axis,
+                  cfg: PoseFitConfig, prismatic: bool):
+    """Joint-constrained RANSAC for one (base, moving-part) pair, batched
+    over frames (pipeline.py:256-320): `joint_hypotheses`, then the full
+    joint LM on the best one's inliers.  -> (the refit's JointFit (B,),
+    the hypotheses' JointFit (B, H), scores (B, H), best (B,), w0, w1
+    (B, P))."""
+    fits, scores = joint_hypotheses(u0, u1, src0, tgt0, m0, src1, tgt1, m1,
+                                    jt_axis, cfg, prismatic)
+    best, w0, w1 = joint_inliers(fits, scores, src0, tgt0, m0, src1, tgt1,
+                                 m1, cfg)
+    return (_joint_refit(src0, tgt0, w0, src1, tgt1, w1, jt_axis, cfg,
+                         prismatic), fits, scores, best, w0, w1)
+
+
+def _joint_refit(src0, tgt0, w0, src1, tgt1, w1, jt_axis,
+                 cfg: PoseFitConfig, prismatic: bool):
+    """The joint LM on inlier weights w0/w1, over the first
+    `lm_refit_points` rows."""
     cap = cfg.lm_refit_points
     if cap is not None and cap < src0.shape[1]:
         src0, tgt0, w0 = src0[:, :cap], tgt0[:, :cap], w0[:, :cap]
@@ -292,13 +320,14 @@ def fit_frame(pred: Dict[str, torch.Tensor], P: torch.Tensor,
     return {k: v[0] for k, v in out.items()}
 
 
-def _joint_group(js, draws: PoseDraws, src, tgt, mask, axes,
-                 cfg: PoseFitConfig, prismatic: bool):
+def _joint_group(js, draws: torch.Tensor, src, tgt, mask, axes,
+                 cfg: PoseFitConfig, prismatic: bool,
+                 diagnostics: bool = False) -> JointStage:
     """The joints `js` (all of one type) solved in one batched call: the
     frames and the joints flattened into one batch axis, the base part's
-    buffers repeated for each joint.  Returns the JointFit with a
-    (B, len(js)) batch shape.  The loop solves one joint a call through
-    the same function, so the two give the same fits."""
+    buffers repeated for each joint (draws `PoseDraws.joint`).  Returns
+    the group's JointStage, (B, len(js), ...).  The loop solves one joint
+    a call through the same function, so the two give the same fits."""
     B, J = src.shape[0], len(js)
 
     def flat(x, idx):            # (B, ...) slices x[:, i] -> (B*J, ...)
@@ -309,13 +338,101 @@ def _joint_group(js, draws: PoseDraws, src, tgt, mask, axes,
         return torch.stack([x[:, i] for i in idx], 1).reshape(
             (B * J,) + x.shape[2:])
 
+    def unflat(x):
+        return x.reshape((B, J) + x.shape[1:])
+
     moving, joint, base = js, [j - 1 for j in js], [0] * J
-    fit = _joint_ransac(
-        flat(draws.joint[:, :, 0], joint), flat(draws.joint[:, :, 1], joint),
+    fit, fits, scores, best, w0, w1 = _joint_ransac(
+        flat(draws[:, :, 0], joint), flat(draws[:, :, 1], joint),
         flat(src, base), flat(tgt, base), flat(mask, base),
         flat(src, moving), flat(tgt, moving), flat(mask, moving),
         flat(axes, joint), cfg, prismatic)
-    return type(fit)(*(x.reshape((B, J) + x.shape[1:]) for x in fit))
+    hyp = (torch.cat([fits.R0.flatten(-2), fits.s0[..., None], fits.t0,
+                      fits.R1.flatten(-2), fits.s1[..., None], fits.t1], -1)
+           if diagnostics else None)
+    return JointStage(
+        *(unflat(x) for x in fit), best=unflat(best.to(torch.int32)),
+        scores=unflat(scores),
+        inliers=unflat(torch.stack([w0 > 0, w1 > 0], 1)),
+        hypotheses=None if hyp is None else unflat(hyp))
+
+
+@dataclasses.dataclass
+class JointProblems:
+    """How many (frame, joint) problems `fit_frame_batch` handed to the
+    `joint_fit` kernel and to the plain path, counted each time Python
+    runs the fit (eagerly, or once as a program is captured)."""
+
+    kernel: int = 0
+    plain: int = 0
+
+    def share(self) -> float:
+        """The kernel's share of the problems counted (0 when none)."""
+        n = self.kernel + self.plain
+        return self.kernel / n if n else 0.0
+
+    def reset(self) -> None:
+        self.kernel = self.plain = 0
+
+
+JOINT_PROBLEMS = JointProblems()
+
+
+def takes_kernel(src: torch.Tensor, cfg: PoseFitConfig) -> bool:
+    """Whether the joint stage on these part buffers runs the `joint_fit`
+    kernel: CUDA buffers and alternating hypotheses.  The kernel refuses
+    a dtype other than float32, so such buffers raise on the card."""
+    return src.device.type == "cuda" and cfg.hypo_estimator == "alternating"
+
+
+def joint_fit_plain(src, tgt, mask, axes, draws: torch.Tensor,
+                    cfg: PoseFitConfig, diagnostics: bool = False
+                    ) -> JointStage:
+    """What the `joint_fit` kernel returns, by the plain path, and what
+    fit_frame_batch solves where the kernel does not run.  The joints go
+    in groups, in the order they are solved: one a joint, or with
+    batch_joints (K > 2) one a type, in order of first appearance; each
+    joint's fields land in its place.  Buffers (B, K, cap, ·), axes
+    (B, K - 1, 3), draws `PoseDraws.joint`."""
+    K = src.shape[1]
+    groups = {}
+    for j in range(1, K):
+        prismatic = cfg.joint_types[j - 1] == "prismatic"
+        key = prismatic if cfg.batch_joints and K > 2 else j
+        groups.setdefault(key, (prismatic, []))[1].append(j)
+    per_joint = [None] * (K - 1)
+    for prismatic, js in groups.values():
+        st = _joint_group(js, draws, src, tgt, mask, axes, cfg, prismatic,
+                          diagnostics)
+        for i, j in enumerate(js):
+            per_joint[j - 1] = [None if x is None else x[:, i] for x in st]
+    return JointStage(*(
+        None if per_joint[0][f] is None
+        else torch.stack([p[f] for p in per_joint], 1)
+        for f in range(len(JointStage._fields))))
+
+
+def part_poses(st: JointStage):
+    """The nonlinear (R, s, t) of every part, (B, K, ...), from a joint
+    stage: part 0 from the first solve (joint 1's base part), part j from
+    joint j's moving part."""
+    return (torch.cat([st.R0[:, :1], st.R1], 1),
+            torch.cat([st.s0[:, :1], st.s1], 1),
+            torch.cat([st.t0[:, :1], st.t1], 1))
+
+
+def joint_stage(src, tgt, mask, axes, draws: PoseDraws, cfg: PoseFitConfig):
+    """The joint stage of `fit_frame_batch` for K >= 2 parts: the
+    `joint_fit` kernel where `takes_kernel`, else `joint_fit_plain`;
+    both give the nonlinear (R, s, t) of every part, (B, K, ...)."""
+    B, K = src.shape[:2]
+    if takes_kernel(src, cfg):
+        st = joint_fit(src, tgt, mask, axes, draws.joint, cfg)
+        JOINT_PROBLEMS.kernel += B * (K - 1)
+    else:
+        st = joint_fit_plain(src, tgt, mask, axes, draws.joint, cfg)
+        JOINT_PROBLEMS.plain += B * (K - 1)
+    return part_poses(st)
 
 
 def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
@@ -356,31 +473,12 @@ def fit_frame_batch(pred: Dict[str, torch.Tensor], P: torch.Tensor,
         axes = vote_joint_axes(pred["joint_axis_per_point"], assocs,
                                cfg.axis_agg)
 
-        # joint groups in the order they are solved: one a joint, or with
-        # batch_joints (K > 2) one a type, in order of first appearance
-        groups = {}
-        for j in range(1, K):
-            prismatic = cfg.joint_types[j - 1] == "prismatic"
-            key = prismatic if cfg.batch_joints and K > 2 else j
-            groups.setdefault(key, (prismatic, []))[1].append(j)
-        # a single-part object has no joint: its baseline pose stands
-        nl_R, nl_s, nl_t = ([fits.R[:, 0]] + [None] * (K - 1),
-                            [fits.s[:, 0]] + [None] * (K - 1),
-                            [fits.t[:, 0]] + [None] * (K - 1))
-        first = True
-        for prismatic, js in groups.values():
-            fit = _joint_group(js, draws, src, tgt, mask, axes, cfg,
-                               prismatic)
-            if first:  # part 0 from the first solve
-                nl_R[0], nl_s[0], nl_t[0] = fit.R0[:, 0], fit.s0[:, 0], \
-                    fit.t0[:, 0]
-                first = False
-            for i, j in enumerate(js):
-                nl_R[j], nl_s[j], nl_t[j] = (fit.R1[:, i], fit.s1[:, i],
-                                             fit.t1[:, i])
+        if K > 1:
+            nl_R, nl_s, nl_t = joint_stage(src, tgt, mask, axes, draws, cfg)
+        else:  # a single-part object has no joint: its baseline pose stands
+            nl_R, nl_s, nl_t = fits.R[:, :1], fits.s[:, :1], fits.t[:, :1]
         stage("fit.joint")
-        out.update({"nonlinear_R": torch.stack(nl_R, 1),
-                    "nonlinear_s": torch.stack(nl_s, 1),
-                    "nonlinear_t": torch.stack(nl_t, 1)})
+        out.update({"nonlinear_R": nl_R, "nonlinear_s": nl_s,
+                    "nonlinear_t": nl_t})
     out["part_counts"] = cnts
     return out

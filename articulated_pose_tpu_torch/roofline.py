@@ -69,6 +69,7 @@ from torch.utils.flop_counter import flop_registry
 
 from articulated_pose_tpu_torch import timing
 from articulated_pose_tpu_torch.ops.kernels import build
+from articulated_pose_tpu_torch.ops.kernels.joint_fit import launch_config
 from articulated_pose_tpu_torch.programs import (bench_model,
                                                  bench_pose_config,
                                                  random_predictions,
@@ -85,6 +86,9 @@ NORM_FLOPS = 5
 NN_PAIR_FLOPS = 10
 FPS_FLOPS = 10
 QUANT_FLOPS = 30
+# a joint hypothesis's inlier test at a point: 16 fmas of the bilinear
+# expansion, the two norms added and the compare
+SCORE_FLOPS = 35
 
 THREE_NN = ("three_nn", "three_nn_stream", "three_nn_packed")
 
@@ -158,6 +162,18 @@ def knn_work(B: int, M: int, N: int, k: int) -> Work:
                 4 * 3 * (B * N + B * M) + 2 * 4 * B * M * k)
 
 
+def joint_fit_work(B: int, K: int, cap: int, H: int,
+                   score_points: int) -> Work:
+    """The `joint_fit` entry over B frames of K parts: for each of the
+    B (K - 1) joints, 2 x H x score_points (hypothesis, point) inlier
+    tests of SCORE_FLOPS; reads the part buffers, axes and draws once,
+    writes each joint's fit, best hypothesis, scores and inlier sets."""
+    J = B * (K - 1)
+    return Work(J * 2 * H * score_points * SCORE_FLOPS,
+                4 * B * K * cap * 7 + 4 * J * 3 + 4 * J * 2 * H * 3
+                + 4 * J * (26 + 1 + H) + J * 2 * cap)
+
+
 def scanned_points(idx: torch.Tensor, cnt: torch.Tensor, N: int
                    ) -> Tuple[int, int]:
     """Points a first-S ball query has to examine for these hits: each
@@ -188,6 +204,12 @@ def kernel_work(name: str, args, kwargs, out) -> Work:
         k, xyz, new_xyz = (_arg(args, kwargs, i, n)
                            for i, n in enumerate(("k", "xyz", "new_xyz")))
         return knn_work(xyz.shape[0], new_xyz.shape[1], xyz.shape[1], k)
+    if name == "joint_fit":
+        src, draws, cfg = (_arg(args, kwargs, i, n)
+                           for i, n in ((0, "src"), (4, "draws"), (5, "cfg")))
+        B, K, cap = src.shape[:3]
+        return joint_fit_work(B, K, cap, draws.shape[3],
+                              launch_config(cfg, B, K, cap).score_points)
     if name in THREE_NN:
         a, b = args[0], _arg(args, kwargs, 1, "xyz2")
         return three_nn_work(a.shape[0], a.shape[1], b.shape[1])

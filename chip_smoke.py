@@ -278,6 +278,23 @@ checkout of the repository, it exits non-zero and prints no result.
    ms, the plain version's, torch.topk(torch.cdist(...), k)'s and its
    bound (`python3 chip_smoke.py --ptv1` runs this phase alone after the
    build).
+19. The `joint_fit` kernel (the pose fit's joint stage, one launch a
+   fit) at the served fits (B=64, N=2048; B=16, N=8192; B=256): held
+   equal to its plain version (`pipeline.joint_fit_plain`), with its ms,
+   the plain version's and its bound.  Every path that fits launches it
+   once a fit, and `held_to_plain` holds it as it holds the others
+   (`python3 chip_smoke.py --joint-fit` runs this phase alone after the
+   build).  Then the product orders the kernel takes from
+   `ops/kernels/joint_fit.py`'s tables, re-read on this card: at every
+   batch count up to 64, on a grid up to 131,072, around each step of
+   the tables and at the fits' counts (B and B x H), the dot3 orders that
+   give torch's products of the plain path bit for bit (`dot3_orders`),
+   each change between two counts bisected to its count, printed as
+   the steps and the table they give; it fails where a table's order is
+   not among them at a count read, and prints the toolkit beside the one
+   the tables were read on
+   (`python3 chip_smoke.py --joint-orders` runs this alone after the
+   build).
 """
 
 from __future__ import annotations
@@ -1076,7 +1093,7 @@ def serve(dev):
     paths = {"serve f32": serve_requests(
         "serve f32", predictor, clouds[:SERVE_REQUESTS * SERVE_BATCH],
         SERVE_BATCH, expected_launches(fps2=1, ball_query_group=2,
-                                       three_nn=2))}
+                                       three_nn=2, joint_fit=1))}
 
     # forward on the card against the same weights on the CPU, B=2
     x = torch.from_numpy(clouds[:2])
@@ -1110,7 +1127,8 @@ def serve(dev):
     packed = PosePredictor(packed_cfg, state_dict=state, device=dev)
     paths["serve packed bf16"] = serve_requests(
         "serve packed bf16", packed, clouds, PACKED_BATCH,
-        expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2))
+        expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2,
+                          joint_fit=1))
     with torch.no_grad():
         x = torch.from_numpy(clouds[:SERVE_BATCH]).to(dev)
         q = packed.model(x)
@@ -1242,7 +1260,7 @@ def bucket_path(dev):
     draws = PoseDraws.sample(B, cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
     per_batch = expected_launches(fps2=1, ball_query_group_bucket=2,
-                                  three_nn=2)
+                                  three_nn=2, joint_fit=1)
 
     reset_launch_counts()
     latencies = []
@@ -1292,7 +1310,7 @@ def bucket_path(dev):
     xla = make("bucket_xla")(torch.bfloat16).to(dev)
     xla.load_state_dict(state)
     out, seconds, counts["bucket_xla bf16"] = forward_launches(
-        "bucket_xla", xla, clouds[:B], per_batch)
+        "bucket_xla", xla, clouds[:B], dict(per_batch, joint_fit=0))
     diff = max((out[k] - a[k]).abs().max().item() for k in out)
     log(f"[bucket_xla] bf16 forward B={B}: {seconds[0] * 1e3:.1f} ms, max "
         f"abs diff to the bucket forward {diff:.3g} (f32 against bf16 "
@@ -1705,7 +1723,8 @@ def train_path(dev):
         reset_launch_counts()
         out = predictor(stack(frames[:TRAIN_B])["P"])
         paths["train checkpoint serve"] = launch_counts()
-        want = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
+        want = expected_launches(fps2=1, ball_query_group=2, three_nn=2,
+                                 joint_fit=1)
         if paths["train checkpoint serve"] != want:
             raise AssertionError(f"serving the trained checkpoint: launches "
                                  f"{paths['train checkpoint serve']}, "
@@ -1845,7 +1864,7 @@ def synthetic_e2e(dev):
     paths["synthetic e2e eval"] = launch_counts()
     batches = -(-E2E_TEST_FRAMES // args.batch)
     want = expected_launches(fps2=batches, ball_query_group=2 * batches,
-                             three_nn=2 * batches)
+                             three_nn=2 * batches, joint_fit=batches)
     if paths["synthetic e2e eval"] != want:
         raise AssertionError(f"[synthetic e2e eval] launches "
                              f"{paths['synthetic e2e eval']}, expected {want}")
@@ -1951,7 +1970,8 @@ def cli_demo_eval(work: pathlib.Path, common):
             raise AssertionError(f"[cli {label}] did not restore step "
                                  f"{CLI_STEPS}")
         check_launches(label, counts, fps2=batches,
-                       ball_query_group=2 * batches, three_nn=2 * batches)
+                       ball_query_group=2 * batches, three_nn=2 * batches,
+                       joint_fit=batches)
         o = check_report(label, work / "eval_all.json")["overall"]
         log(f"[cli {label}] {CLI_FRAMES} frames in {seconds:.2f} s (host "
             f"clock, the whole command; niter 128/64): 5deg5cm "
@@ -1987,7 +2007,8 @@ def cli_serve(work: pathlib.Path, common, dev):
         n = len(clouds)
         batches = -(-n // CLI_B)
         check_launches(label, counts, fps2=batches,
-                       ball_query_group=2 * batches, three_nn=2 * batches)
+                       ball_query_group=2 * batches, three_nn=2 * batches,
+                       joint_fit=batches)
         got = np.load(out_npz)
         want = serve_clouds(predictor, clouds, CLI_B)
         devs = {}
@@ -2292,7 +2313,7 @@ def cli_path(dev):
 # the kernels that the models (models/pointnet2.py's names) and the
 # timing tools call, as phase 13-16's paths call them
 HELD_KERNELS = ("fps", "fps2", "ball_query_group", "ball_query_group_packed",
-                "three_nn", "ball_query_point")
+                "three_nn", "ball_query_point", "joint_fit")
 
 
 @contextlib.contextmanager
@@ -2310,9 +2331,11 @@ def held_to_plain(label: str):
 
     from articulated_pose_tpu_torch.models import pointnet2
     from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps,
-                                                        three_nn)
+                                                        joint_fit, three_nn)
+    from articulated_pose_tpu_torch.pose import pipeline
 
     plain = {"fps": fps.fps_plain, "fps2": fps.fps2_plain,
+             "joint_fit": pipeline.joint_fit_plain,
              "ball_query_group": ball_query.ball_query_group_plain,
              "ball_query_group_packed":
                  ball_query.ball_query_group_packed_plain,
@@ -2330,7 +2353,7 @@ def held_to_plain(label: str):
             want = plain[name](*args, **kwargs)
             shape = " ".join(
                 "x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
-                for a in args)
+                for a in args if not hasattr(a, "hypo_estimator"))
             if name == "three_nn":
                 check_equal(f"[{label}] three_nn {shape} indices", got[1:],
                             want[1:])
@@ -2348,7 +2371,8 @@ def held_to_plain(label: str):
         return call
 
     kept = {(mod, name): getattr(mod, name)
-            for mod in (pointnet2, fps, ball_query, three_nn)
+            for mod in (pointnet2, fps, ball_query, three_nn, joint_fit,
+                        pipeline)
             for name in HELD_KERNELS if hasattr(mod, name)}
     for (mod, name), fn in kept.items():
         setattr(mod, name, checked(name, fn))
@@ -2470,7 +2494,8 @@ def mesh_cli(dev):
                 "--output", str(out_npz), *extra])
             batches = -(-CLI_SERVE_CLOUDS // CLI_B)
             check_launches(label, counts, fps2=batches,
-                           ball_query_group=2 * batches, three_nn=2 * batches)
+                           ball_query_group=2 * batches, three_nn=2 * batches,
+                           joint_fit=batches)
             outs[label] = dict(np.load(out_npz))
             paths[f"mesh cli {label}"] = counts
         log_held("mesh cli serve --mesh data=1", held,
@@ -2745,12 +2770,12 @@ def mesh_path(dev):
                                       PACKED_BATCH, N_POINTS, 3)
     paths = {"mesh serve f32": sharded_serve(
         "serve f32", cfg, state, clouds[:SERVE_BATCH], dev,
-        dict(fps2=1, ball_query_group=2, three_nn=2))}
+        dict(fps2=1, ball_query_group=2, three_nn=2, joint_fit=1))}
     packed = cfg.replace(compute_dtype="bfloat16", ball_query_packed=True,
                          batch_size=PACKED_BATCH)
     paths["mesh serve packed bf16"] = sharded_serve(
         "serve packed bf16", packed, state, clouds, dev,
-        dict(fps2=1, ball_query_group_packed=2, three_nn=2))
+        dict(fps2=1, ball_query_group_packed=2, three_nn=2, joint_fit=1))
     paths.update(mesh_cli(dev))
     paths.update(mesh_train(dev))
     paths["mesh R6 joint baseline"] = more_picks_than_points(dev)
@@ -3063,7 +3088,8 @@ def reference_checkpoint(dev, tmp: pathlib.Path):
     timer = StepTimer()
     paths["ref ckpt serve"] = serve_requests(
         "ref ckpt serve", predictor, clouds, REF_SERVE_B,
-        expected_launches(fps2=1, ball_query_group=2, three_nn=2), timer)
+        expected_launches(fps2=1, ball_query_group=2, three_nn=2,
+                          joint_fit=1), timer)
     log(f"[ref ckpt serve] on {card_line()}")
     log(f"[ref ckpt serve] StepTimer: {json.dumps(timer.summary())}")
     # a fresh predictor's first call runs the program (later ones replay)
@@ -3134,7 +3160,8 @@ def asset_path(predictor, dev, tmp: pathlib.Path):
     reset_launch_counts()
     res = predictor(frames["P"])
     counts = launch_counts()
-    want = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
+    want = expected_launches(fps2=1, ball_query_group=2, three_nn=2,
+                             joint_fit=1)
     if counts != want:
         raise AssertionError(f"[assets] launches {counts}, expected {want}")
     B, N = frames["P"].shape[:2]
@@ -3258,12 +3285,14 @@ def path_call(label: str, fn, *args, **kwargs):
     return out, counts, seconds
 
 
-def ab_forwards(label: str, counts, forwards: int, packed: bool = False):
-    """Raise unless `counts` are `forwards` forwards' launches: 1 fps2,
-    2 ball queries (exact or packed) and 2 three_nn each."""
+def ab_forwards(label: str, counts, forwards: int, packed: bool = False,
+                fits: int = 0):
+    """Raise unless `counts` are `forwards` forwards' launches (1 fps2,
+    2 ball queries (exact or packed) and 2 three_nn each) and `fits`
+    fits' (1 joint_fit each)."""
     bq = "ball_query_group_packed" if packed else "ball_query_group"
     want = expected_launches(fps2=forwards, three_nn=2 * forwards,
-                             **{bq: 2 * forwards})
+                             joint_fit=fits, **{bq: 2 * forwards})
     if counts != want:
         raise AssertionError(f"[ab {label}] launches {counts}, expected "
                              f"{want} ({forwards} forwards)")
@@ -3315,7 +3344,8 @@ def ab_packed(work: str, dev) -> dict:
         want = expected_launches(
             fps2=2 * forwards, three_nn=4 * forwards,
             ball_query_group=2 * forwards,
-            ball_query_group_packed=2 * forwards)
+            ball_query_group_packed=2 * forwards,
+            joint_fit=2 * (forwards - 1))
         if counts != want:
             raise AssertionError(f"[ab packed_eval {dtype}] launches "
                                  f"{counts}, expected {want}")
@@ -3380,7 +3410,8 @@ def ab_knobs(work: str) -> dict:
          "--min-seg-acc", str(AB_MIN_SEG)])
     out, counts, _ = path_call("ab pose_knobs_trained",
                                pose_knobs_trained.run, args)
-    ab_forwards("pose_knobs_trained", counts, 1)
+    # each arm: a warm-up fit and 3 timed ones, then its batch's fit
+    ab_forwards("pose_knobs_trained", counts, 1, fits=2 * (1 + 3 + 1))
     # the same prediction forward and the control's fit, each kernel
     # call held
     held_args = pose_knobs_trained.parser().parse_args(
@@ -3587,8 +3618,8 @@ def tools_train_stages(dev) -> dict:
 
 def tools_ab(dev) -> dict:
     """Phase 16(e-g): ab.overlap (its pipelined fits equal to the serial
-    ones), ab.batch at B=64 and 128, ab.batch_joints (no kernel); each
-    forward's kernel calls held once at each batch size."""
+    ones), ab.batch at B=64 and 128, ab.batch_joints (joint_fit alone); each
+    forward's and fit's kernel calls held once at each batch size."""
     import torch
 
     from articulated_pose_tpu_torch.ab import batch, batch_joints, overlap
@@ -3598,7 +3629,8 @@ def tools_ab(dev) -> dict:
     args = overlap.parser().parse_args(["--iters", str(TOOLS_ITERS)])
     res, counts, _ = path_call("ab overlap", overlap.run, args)
     # 2 x (fwd-only, serial, pipelined), each a warm-up and a timed call
-    ab_forwards("overlap", counts, 3 * 2 * TOOLS_ITERS, packed=True)
+    ab_forwards("overlap", counts, 3 * 2 * TOOLS_ITERS, packed=True,
+                fits=3 * 2 * TOOLS_ITERS)
     paths["ab overlap"] = counts
     args = batch.parser().parse_args(["--iters", str(TOOLS_ITERS),
                                       "--batches", TOOLS_BATCHES])
@@ -3606,20 +3638,24 @@ def tools_ab(dev) -> dict:
     Bs = [int(b) for b in TOOLS_BATCHES.split(",")]
     # per B: a warm-up, two runs, and the profile's two calls
     ab_forwards("batch", counts, len(Bs) * (3 + 2 * TOOLS_ITERS),
-                packed=True)
+                packed=True, fits=len(Bs) * (3 + 2 * TOOLS_ITERS))
     for r in res["rows"]:
         if not (r["device_ms"] > 0 and r["device_ops"] > 0):
             raise AssertionError(f"[ab batch] {r}")
     paths["ab batch"] = counts
     with held_to_plain("ab overlap, batch") as held, torch.inference_mode():
         for B in Bs:
-            BenchProgram(B, N_POINTS, 1, dev).forward(0)
+            BenchProgram(B, N_POINTS, 1, dev).step(0)
     log_held("ab overlap, batch", held, paths["ab overlap"])
     log_held("ab overlap, batch", held, paths["ab batch"])
     args = batch_joints.parser().parse_args(["--iters", str(TOOLS_ITERS)])
     _, counts, _ = path_call("ab batch_joints", batch_joints.run, args)
-    if any(counts.values()):
-        raise AssertionError(f"[ab batch_joints] the fit launched {counts}")
+    # a fit of each arm, then 4 windows of iters fits; one joint_fit a fit,
+    # the joints grouped or not
+    want = expected_launches(joint_fit=2 + 4 * TOOLS_ITERS)
+    if counts != want:
+        raise AssertionError(f"[ab batch_joints] the fit launched {counts}, "
+                             f"expected {want}")
     return paths
 
 
@@ -3912,8 +3948,10 @@ def compiled_serving(dev, card: str):
                                       N_POINTS, 3)
     packed_cfg = cfg.replace(compute_dtype="bfloat16", ball_query_packed=True,
                              batch_size=PACKED_BATCH)
-    exact = expected_launches(fps2=1, ball_query_group=2, three_nn=2)
-    packed = expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2)
+    exact = expected_launches(fps2=1, ball_query_group=2, three_nn=2,
+                              joint_fit=1)
+    packed = expected_launches(fps2=1, ball_query_group_packed=2, three_nn=2,
+                               joint_fit=1)
     serving = {
         "compiled serve packed bf16": (
             PosePredictor(packed_cfg, state_dict=state, device=dev),
@@ -4083,6 +4121,145 @@ def ptv1_knn_times(dev) -> dict:
     return kernel_result(max(errs), times, shapes, bounds)
 
 
+JOINT_FIT_SHAPES = ((64, 2048), (16, 8192), (256, 2048))
+
+
+def joint_fit_times(dev) -> dict:
+    """The `joint_fit` kernel at the served cells' fits (K=3, H=64, the
+    buffers of random heads): held equal to its plain version
+    (pipeline.joint_fit_plain, every joint alone), then its ms, the plain
+    version's and the bound from roofline.joint_fit_work.  Returns its
+    entry of the kernels' JSON line (`kernel_result`)."""
+    import torch
+
+    from articulated_pose_tpu_torch import roofline, timing
+    from articulated_pose_tpu_torch.ops.kernels.joint_fit import (
+        joint_fit, launch_config)
+    from articulated_pose_tpu_torch.pose import pipeline
+    from articulated_pose_tpu_torch.programs import (bench_pose_config,
+                                                     random_predictions)
+
+    cfg = bench_pose_config()
+    times, shapes, bounds, errs = [], [], [], []
+    for B, N in JOINT_FIT_SHAPES:
+        rng = np.random.RandomState(B + N)
+        pred = random_predictions(rng, B, N, 3, dev)
+        P = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32)).to(dev)
+        cap = min(cfg.part_points, N)
+        src, tgt, mask, _ = pipeline.build_part_buffers_sorted(
+            pred["nocs_per_point"], P, pred["W"].argmax(-1), 3, cap)
+        assocs = (pred["index_per_point"].argmax(-1).unsqueeze(1)
+                  == torch.arange(1, 3, device=dev)[:, None]).float()
+        axes = pipeline.vote_joint_axes(pred["joint_axis_per_point"], assocs)
+        draws = pipeline.PoseDraws.sample(B, cfg, device=dev).joint
+        args = (src, tgt, mask, axes, draws, cfg)
+        got, want = joint_fit(*args), pipeline.joint_fit_plain(*args)
+        errs.append(check_equal(f"[joint_fit] B={B} N={N}", got[:-1],
+                                want[:-1]))
+        times.append(time_both(lambda: joint_fit(*args),
+                               lambda: pipeline.joint_fit_plain(*args)))
+        work = roofline.joint_fit_work(
+            B, 3, cap, cfg.niter_joint,
+            launch_config(cfg, B, 3, cap).score_points)
+        bounds.append(timing.roofline_ms(work.flops, work.bytes))
+        shapes.append([B, N, 3, cfg.niter_joint])
+        log(f"[joint_fit] B={B} N={N} K=3 H={cfg.niter_joint}: equal; "
+            f"{times[-1][4]}; bound {max(bounds[-1]):.4f} ms")
+    return kernel_result(max(errs), times, shapes, bounds)
+
+
+def joint_order_counts() -> list:
+    """The batch counts whose product orders `joint_orders` reads first:
+    every count up to 64, a grid (x1.15) up to ORDERS_CHECKED_TO, two on
+    each side of each step of the tables, and the fits' counts B and
+    B x H (H = 64, 128) for B up to 512."""
+    from articulated_pose_tpu_torch.ops.kernels.joint_fit import (
+        MV_ORDERS, MVT_ORDERS, ORDERS_CHECKED_TO)
+
+    counts = set(range(1, 65))
+    n = 64
+    while n < ORDERS_CHECKED_TO:
+        n = int(n * 1.15) + 1
+        counts.add(min(n, ORDERS_CHECKED_TO))
+    for start, _ in MV_ORDERS + MVT_ORDERS:
+        counts.update(range(max(1, start - 2), start + 3))
+    for B in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512):
+        counts.update((B, 64 * B, 128 * B))
+    return sorted(c for c in counts if c <= ORDERS_CHECKED_TO)
+
+
+def order_table(steps) -> tuple:
+    """A table of (from, order) steps from (from, orders that match)
+    steps: an order kept while it still matches, else the lowest that
+    matches, None where none does; equal neighbours merged."""
+    table = []
+    for start, found in steps:
+        keep = table[-1][1] if table else None
+        order = keep if keep in found else (min(found) if found else None)
+        if not table or order != keep:
+            table.append((start, order))
+    return tuple(table)
+
+
+def joint_orders(dev) -> dict:
+    """Re-read the product orders of `joint_fit`'s tables on this card
+    (phase 19's second half): for each form, the dot3 orders that give
+    torch's product bit for bit at `joint_order_counts`, each change
+    between two counts bisected to the count where it happens; logged
+    as runs of counts and as the table they give.  Fails where a table's
+    order is not among those that match at a count read."""
+    import torch
+
+    from articulated_pose_tpu_torch.ops.kernels.joint_fit import (
+        ORDERS_TOOLKIT, PRODUCT_FORMS, dot3_orders, dot_order, toolkit_of)
+
+    here = toolkit_of(torch.__version__, torch.version.cuda)
+    log(f"[joint orders] toolkit {here}, the tables read on "
+        f"{ORDERS_TOOLKIT}: {'same' if here == ORDERS_TOOLKIT else 'other'}")
+    counts = joint_order_counts()
+    result = {"toolkit": list(here), "counts": len(counts), "tables": {},
+              "off": {}}
+    for form in PRODUCT_FORMS:
+        read = {}
+
+        def orders(n):
+            if n not in read:
+                read[n] = dot3_orders(n, form, dev,
+                                      draws=max(2, min(64, 512 // n)),
+                                      seed=n)
+            return read[n]
+
+        def steps_between(a, b):       # the counts in (a, b] where it changes
+            if orders(a) == orders(b):
+                return []
+            if b - a == 1:
+                return [b]
+            m = (a + b) // 2
+            return steps_between(a, m) + steps_between(m, b)
+
+        steps = [(counts[0], orders(counts[0]))]
+        for a, b in zip(counts, counts[1:]):
+            steps += [(n, orders(n)) for n in steps_between(a, b)]
+        table = order_table(steps)
+        off = [[n, dot_order(n, form == "mvt"), list(found)]
+               for n, found in sorted(read.items())
+               if dot_order(n, form == "mvt") is not None
+               and dot_order(n, form == "mvt") not in found]
+        log(f"[joint orders] {form}: " + ", ".join(
+            f"from {n} {list(found)}" for n, found in steps))
+        log(f"[joint orders] {form} table read: {table}; "
+            f"{len(read)} counts")
+        result["tables"][form] = table
+        result["off"][form] = off
+    log(f"[joint orders] {json.dumps(result)}")
+    if any(result["off"].values()):
+        raise AssertionError(
+            f"[joint orders] the tables' orders give other products than "
+            f"torch's at (count, order, orders that match): "
+            f"{json.dumps(result['off'])}")
+    return result
+
+
 def ptv1_serve(dev):
     """Phase 18: serve the Point Transformer configuration once through
     the command line, its config read by load_config."""
@@ -4112,7 +4289,8 @@ def ptv1_serve(dev):
             str(work), "--output", str(out_npz)])
         batches = -(-PTV1_FRAMES // PTV1_B)
         check_launches("serve ptv1", counts, knn=9 * batches,
-                       fps=4 * batches, three_nn=4 * batches)
+                       fps=4 * batches, three_nn=4 * batches,
+                       joint_fit=batches)
         got = np.load(out_npz)
         if got["R"].shape != (PTV1_FRAMES, cfg.n_max_parts, 3, 3) or not \
                 np.isfinite(got["R"]).all():
@@ -4183,7 +4361,7 @@ def main() -> int:
     log(f"[host] native library (labeling, ball renderer; g++): {found}")
 
     t0 = time.perf_counter()
-    # the twelve kernels and the card-limits probe's (phase 16)
+    # the thirteen kernels and the card-limits probe's (phase 16)
     built = [*KERNELS.values(), *PROBE_KERNELS]
     seconds = build_all(built)
     logs = {k.source: k.build_log() for k in built}
@@ -4203,6 +4381,14 @@ def main() -> int:
         with phase("18 Point Transformer"):
             ptv1_serve(dev)
             ptv1_knn_times(dev)
+        return 0
+    if sys.argv[1:2] == ["--joint-fit"]:
+        with phase("19 joint_fit"):
+            log(json.dumps({"joint_fit": joint_fit_times(dev)}))
+        return 0
+    if sys.argv[1:2] == ["--joint-orders"]:
+        with phase("19 joint_fit product orders"):
+            joint_orders(dev)
         return 0
 
     with phase("2 kernels"):
@@ -4241,6 +4427,9 @@ def main() -> int:
     with phase("18 Point Transformer"):
         paths.update(ptv1_serve(dev))
         kernels["knn"] = ptv1_knn_times(dev)
+    with phase("19 joint_fit"):
+        kernels["joint_fit"] = joint_fit_times(dev)
+        joint_orders(dev)
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

@@ -25,7 +25,11 @@ with ties across the lanes' slices and tiles, M = 1, 2, 3 and 33, at
 every path shape and at (4, 2048 <- 16384); the k-NN kernel at the
 Point Transformer cell's nine searches (B=16) and at k = 1, 3, 8, 16 on
 every lane count with planted ties, and the Point Transformer predictor
-replayed against eager.  The served bf16 program's replay folds the
+replayed against eager.  The joint_fit kernel picks the plain joint
+stage's hypotheses and inlier sets in every problem, and its poses
+within 1e-5, eagerly and replayed, at the served shapes (B=64, N=2048;
+B=16, N=8192; B=256), with K=2, K=4 and a prismatic joint (grouped by
+type or not), the eval knobs (H=128) and parts of 2 or 0 points.  The served bf16 program's replay folds the
 batch-norm state it finds: after new statistics are loaded in place it
 equals a fresh eager call.  One train step at the
 reference widths is held against the same step on the CPU.  A captured
@@ -1248,3 +1252,171 @@ def test_point_transformer_predictor_replays_the_eager_program(dev):
     assert len(names) == len(set(names))
     assert {"ptv1.e1.knn", "ptv1.e2.td.knn", "ptv1.e1.b1.attn",
             "ptv1.d1.b1.attn", "ptv1.out", "forward"} <= set(names)
+
+
+# ------------------------------------------------------------- joint_fit
+def _joint_inputs(dev, B, N, K, seed, **knobs):
+    """The joint stage's inputs as fit_frame_batch builds them from random
+    heads (what the served cells' random weights give): part buffers,
+    voted axes and the draws."""
+    from articulated_pose_tpu_torch.pose import pipeline as pp
+    from articulated_pose_tpu_torch.programs import random_predictions
+
+    cfg = pp.PoseFitConfig(n_parts=K, ransac_chunk=None, **knobs)
+    rng = np.random.RandomState(seed)
+    pred = random_predictions(rng, B, N, K, dev)
+    P = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 2 - 1).to(dev)
+    src, tgt, mask, _ = pp.build_part_buffers_sorted(
+        pred["nocs_per_point"], P, pred["W"].argmax(-1), K,
+        min(cfg.part_points, N))
+    assocs = (pred["index_per_point"].argmax(-1).unsqueeze(1)
+              == torch.arange(1, K, device=dev)[:, None]).float()
+    axes = pp.vote_joint_axes(pred["joint_axis_per_point"], assocs)
+    draws = pp.PoseDraws.sample(
+        B, cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    return cfg, src, tgt, mask, axes, draws
+
+
+def _tiny_parts(src, tgt, mask):
+    """Frames 0-3 keep 2 points of part 1, frames 4-7 none of part 2 and
+    frame 8 none of part 0 (valid rows first, as the buffers come)."""
+    for b, k, n in ([(b, 1, 2) for b in range(4)]
+                    + [(b, 2, 0) for b in range(4, 8)] + [(8, 0, 0)]):
+        for t in (src, tgt, mask):
+            t[b, k, n:] = 0
+
+
+JOINT_CASES = {
+    # name: (B, N, K, knobs)
+    "served_b64": (64, 2048, 3, {}),
+    "ptv1_b16_n8192": (16, 8192, 3, {}),
+    "served_b256": (256, 2048, 3, {}),
+    "k2": (32, 2048, 2, {"joint_types": ("revolute",)}),
+    "k4_prismatic": (32, 2048, 4, {
+        "joint_types": ("revolute", "prismatic", "revolute")}),
+    "k4_prismatic_batch_joints": (32, 2048, 4, {
+        "joint_types": ("revolute", "prismatic", "revolute"),
+        "batch_joints": True}),
+    "eval_h128": (32, 2048, 3, {"niter_part": 1024, "niter_joint": 128,
+                                "lm_iters_refit": 15}),
+    "tiny_parts": (16, 2048, 3, {}),
+}
+
+
+@pytest.mark.parametrize("name", list(JOINT_CASES))
+def test_joint_fit_matches_the_plain_joint_stage(dev, name):
+    """The kernel picks the plain path's hypothesis and inlier sets in
+    every problem and its poses within 1e-5 (bit for bit where the
+    product orders are known), inside a captured program as eagerly, and
+    fit_frame_batch's joint stage (with the configured grouping) equals
+    the plain one's."""
+    from articulated_pose_tpu_torch.ops.kernels import joint_fit as jf
+    from articulated_pose_tpu_torch.pose import pipeline as pp
+
+    B, N, K, knobs = JOINT_CASES[name]
+    cfg, src, tgt, mask, axes, draws = _joint_inputs(dev, B, N, K, 7, **knobs)
+    if name == "tiny_parts":
+        _tiny_parts(src, tgt, mask)
+    before = KERNELS["joint_fit"].launches
+    got = jf.joint_fit(src, tgt, mask, axes, draws.joint, cfg,
+                       diagnostics=True)
+    torch.cuda.synchronize()
+    assert KERNELS["joint_fit"].launches == before + 1
+    want = pp.joint_fit_plain(src, tgt, mask, axes, draws.joint, cfg,
+                              diagnostics=True)
+    assert torch.equal(got.best, want.best)
+    assert torch.equal(got.scores, want.scores)
+    assert torch.equal(got.inliers, want.inliers)
+    assert torch.equal(got.hypotheses, want.hypotheses)
+    for f in ("R0", "s0", "t0", "R1", "s1", "t1"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert torch.isfinite(g).all(), f
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=f)
+
+    # the kernel captured into a program, replayed
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        jf.joint_fit(src, tgt, mask, axes, draws.joint, cfg)   # warm
+        with torch.cuda.graph(graph, stream=side):
+            cap = jf.joint_fit(src, tgt, mask, axes, draws.joint, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    for f in ("R0", "s0", "t0", "R1", "s1", "t1", "best", "scores",
+              "inliers"):
+        assert torch.equal(getattr(cap, f), getattr(got, f)), f
+
+    pp.JOINT_PROBLEMS.reset()
+    R, s, t = pp.joint_stage(src, tgt, mask, axes, draws, cfg)
+    assert (pp.JOINT_PROBLEMS.kernel, pp.JOINT_PROBLEMS.plain) == (
+        B * (K - 1), 0)
+    Rp, sp, tp = pp.part_poses(want)
+    for g, w in ((R, Rp), (s, sp), (t, tp)):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)
+
+
+def test_fit_frame_batch_takes_the_kernel_on_the_card(dev):
+    """A fit of CUDA float32 heads launches joint_fit once and counts its
+    problems as the kernel's; "lm" hypotheses take the plain path."""
+    from articulated_pose_tpu_torch.pose import pipeline as pp
+    from articulated_pose_tpu_torch.programs import random_predictions
+
+    rng = np.random.RandomState(3)
+    pred = random_predictions(rng, 8, 1024, 3, dev)
+    P = torch.from_numpy(rng.rand(8, 1024, 3).astype(np.float32)).to(dev)
+    for estimator, kernel, launched in (("alternating", 16, 1), ("lm", 0, 0)):
+        cfg = pp.PoseFitConfig(hypo_estimator=estimator, niter_joint=16,
+                               lm_iters_hypo=2)
+        draws = pp.PoseDraws.sample(8, cfg, device=dev)
+        pp.JOINT_PROBLEMS.reset()
+        before = KERNELS["joint_fit"].launches
+        out = pp.fit_frame_batch(pred, P, draws, cfg)
+        torch.cuda.synchronize()
+        assert KERNELS["joint_fit"].launches - before == launched
+        assert (pp.JOINT_PROBLEMS.kernel,
+                pp.JOINT_PROBLEMS.plain) == (kernel, 16 - kernel)
+        assert torch.isfinite(out["nonlinear_R"]).all()
+
+
+def test_joint_stage_refuses_other_dtypes_on_the_card(dev):
+    """CUDA buffers of another dtype than float32 go to the kernel, which
+    raises, and never fall back to the plain path unseen."""
+    from articulated_pose_tpu_torch.pose import pipeline as pp
+
+    cfg, src, tgt, mask, axes, draws = _joint_inputs(dev, 4, 256, 3, 5)
+    pp.JOINT_PROBLEMS.reset()
+    with pytest.raises(ValueError, match="float32"):
+        pp.joint_stage(src.bfloat16(), tgt.bfloat16(), mask.bfloat16(),
+                       axes.bfloat16(), draws, cfg)
+    assert pp.JOINT_PROBLEMS.plain == 0
+
+
+def test_joint_fit_orders_were_read_on_this_toolkit(dev):
+    """The product tables of ops/kernels/joint_fit.py hold for the torch
+    and CUDA they were read on; on another, re-read them with
+    `python3 chip_smoke.py --joint-orders` and record the toolkit."""
+    from articulated_pose_tpu_torch.ops.kernels import joint_fit as jf
+
+    assert jf.toolkit_of(torch.__version__, torch.version.cuda) \
+        == jf.ORDERS_TOOLKIT
+    assert jf.check_toolkit(torch.__version__, torch.version.cuda)
+
+
+# the fits' batch counts of the tiny products: B x H for the hypotheses
+# (A v and its row form), B for the refit (A v, A^T v)
+FIT_COUNTS = {"mv": (8, 16, 32, 64, 256, 16 * 64, 32 * 128, 64 * 64,
+                     256 * 64),
+              "row": (16 * 64, 32 * 128, 64 * 64, 256 * 64),
+              "mvt": (8, 16, 32, 64, 256)}
+
+
+@pytest.mark.parametrize("form", list(FIT_COUNTS))
+def test_dot3_orders_hold_at_the_fits_counts(dev, form):
+    """At every batch count the served and eval fits take, the order the
+    tables name gives torch's product of the plain path bit for bit."""
+    from articulated_pose_tpu_torch.ops.kernels import joint_fit as jf
+
+    for n in FIT_COUNTS[form]:
+        order = jf.dot_order(n, form == "mvt")
+        assert order in jf.dot3_orders(n, form, dev, seed=n), (n, order)

@@ -219,7 +219,8 @@ class TestDispatch:
                                    "ball_query_point_grouped": 0,
                                    "ball_query_group_bucket": 0,
                                    "three_nn": 0, "three_nn_stream": 0,
-                                   "three_nn_packed": 0, "knn": 0}
+                                   "three_nn_packed": 0, "knn": 0,
+                                   "joint_fit": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
