@@ -11,8 +11,10 @@ step (`bn_momentum_schedule`, `lr_schedule`).
 small reader of its own (`read_flat_yaml`), so it needs no PyYAML, and
 it refuses a key that neither package knows, as JAX's `load_config`
 does.  One key is the port's alone (`PORT_FIELDS`): `backbone`, which
-picks PointNet++ ("pointnet2", the JAX package's only backbone) or the
-Point Transformer ("point_transformer", `models/point_transformer.py`).
+picks PointNet++ ("pointnet2", the JAX package's only backbone), the
+Point Transformer ("point_transformer", `models/point_transformer.py`)
+or Point Transformer V3 ("point_transformer_v3",
+`models/point_transformer_v3.py`).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ JAX_FIELDS = (
     "mesh_shape", "seed")
 # the keys only the port knows, which load_config accepts beside JAX's
 PORT_FIELDS = ("backbone",)
-BACKBONES = ("pointnet2", "point_transformer")
+BACKBONES = ("pointnet2", "point_transformer", "point_transformer_v3")
 
 
 @dataclasses.dataclass

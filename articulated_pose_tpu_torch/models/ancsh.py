@@ -14,11 +14,14 @@ of the mixed-precision policy (ancsh.py:73-96).  The heads take their
 input width from the backbone: PointNet++'s fc1 (128 at the reference
 widths) or the Point Transformer's segmentation feature (32;
 `models/point_transformer.py`), which a `PointTransformerSpec` as
-`backbone_spec` selects.  `folded_bn_layers` counts the batch norms
-that a forward in the model's current mode folds into their Linear
-(`layers.PointConv`): 17 in the reference PointNet++ network in eval
-mode, 0 in training and on the Point Transformer, whose own norms are
-not `PointConv`s; the joint head's two are never folded (`JointHead`).
+`backbone_spec` selects, or Point Transformer V3's decoder output (64;
+`models/point_transformer_v3.py`, a `PointTransformerV3Spec`), which
+`forward` hands the order shuffle it is given.  `folded_bn_layers`
+counts the batch norms that a forward in the model's current mode folds
+into their Linear (`layers.PointConv`): 17 in the reference PointNet++
+network in eval mode, 0 in training and on the Point Transformers, whose
+own norms are not `PointConv`s; the joint head's two are never folded
+(`JointHead`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from articulated_pose_tpu_torch.models.layers import (PointConv, dropout,
                                                      init_weights)
 from articulated_pose_tpu_torch.models.point_transformer import (
     PT_TINY_WIDTHS, PointTransformerBackbone, PointTransformerSpec)
+from articulated_pose_tpu_torch.models.point_transformer_v3 import (
+    PTV3_TINY_WIDTHS, PointTransformerV3Backbone, PointTransformerV3Spec)
 from articulated_pose_tpu_torch.models.pointnet2 import (TINY_WIDTHS,
                                                          BackboneSpec,
                                                          PointNet2Backbone)
@@ -84,13 +89,14 @@ class JointHead(nn.Module):
 class ANCSHModel(nn.Module):
     """Full per-point multi-head model; `mixed` selects ANCSH (part +
     global NOCS) over NPCS (part NOCS only).  A `PointTransformerSpec`
-    builds the Point Transformer backbone, which takes none of
-    PointNet++'s policy knobs (`pool_dtype`, `act_dtype`, `f32_stages`)
-    and no input features."""
+    builds the Point Transformer backbone and a `PointTransformerV3Spec`
+    Point Transformer V3; they take none of PointNet++'s policy knobs
+    (`pool_dtype`, `act_dtype`, `f32_stages`) and no input features."""
 
     def __init__(self, n_max_parts: int = 3, mixed: bool = True,
                  pred_joint: bool = True, early_split_nocs: bool = True,
-                 backbone_spec: Union[BackboneSpec, PointTransformerSpec]
+                 backbone_spec: Union[BackboneSpec, PointTransformerSpec,
+                                      PointTransformerV3Spec]
                  = BackboneSpec(),
                  dtype: torch.dtype = torch.float32,
                  head_dtype: Optional[torch.dtype] = None,
@@ -103,16 +109,18 @@ class ANCSHModel(nn.Module):
         self.mixed = mixed
         self.pred_joint = pred_joint
         self.early_split_nocs = early_split_nocs
-        if isinstance(backbone_spec, PointTransformerSpec):
+        transformers = {PointTransformerSpec: PointTransformerBackbone,
+                        PointTransformerV3Spec: PointTransformerV3Backbone}
+        if type(backbone_spec) in transformers:
             knobs = {"pool_dtype": pool_dtype, "act_dtype": act_dtype,
                      "f32_stages": tuple(f32_stages) or None,
                      "in_features": in_features or None}
             given = sorted(k for k, v in knobs.items() if v is not None)
+            backbone = transformers[type(backbone_spec)]
             if given:
-                raise ValueError(f"the Point Transformer backbone takes "
-                                 f"none of {given}")
-            self.backbone = PointTransformerBackbone(backbone_spec,
-                                                     dtype=dtype)
+                raise ValueError(f"the {backbone.__name__} takes none of "
+                                 f"{given}")
+            self.backbone = backbone(backbone_spec, dtype=dtype)
         else:
             self.backbone = PointNet2Backbone(
                 backbone_spec, dtype=dtype, in_features=in_features,
@@ -140,12 +148,14 @@ class ANCSHModel(nn.Module):
                    for m in self.modules())
 
     def forward(self, P: torch.Tensor, *, bn_momentum=0.9,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                shuffle=None) -> Dict[str, torch.Tensor]:
         """In training mode batch norm moves its running statistics by
         `bn_momentum` (a float or a 0-d tensor) and dropout draws its
-        masks from `generator`."""
-        feat = self.backbone(P, bn_momentum, generator)
+        masks from `generator`.  `shuffle` goes to a backbone that
+        permutes its orders (Point Transformer V3's `draw_shuffle`)."""
+        kw = {} if shuffle is None else {"shuffle": shuffle}
+        feat = self.backbone(P, bn_momentum, generator, **kw)
         results = []
         for i in range(self.n_heads):
             x = feat
@@ -200,12 +210,16 @@ def build_model(config, generator: Optional[torch.Generator] = None,
     `spec` gives the backbone's widths in place of `backbone_preset`'s
     (the tests' tiny backbones); the config still sets its dropout rate
     and ball-query route."""
+    specs = {"point_transformer": (PointTransformerSpec, PT_TINY_WIDTHS),
+             "point_transformer_v3": (PointTransformerV3Spec,
+                                      PTV3_TINY_WIDTHS)}
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
     tiny = config.backbone_preset == "tiny"
-    if config.backbone == "point_transformer":
+    if config.backbone in specs:
+        cls, tiny_widths = specs[config.backbone]
         spec = dataclasses.replace(
-            spec or PointTransformerSpec(**(PT_TINY_WIDTHS if tiny else {})),
+            spec or cls(**(tiny_widths if tiny else {})),
             dropout_rate=config.dropout_rate)
     else:
         spec = dataclasses.replace(

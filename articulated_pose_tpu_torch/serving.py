@@ -14,7 +14,13 @@ unsharded predictor does.
 Each data shard runs the forward and the fit as one captured program
 (`compiled.py`), as the JAX server compiles them as one (serving.py:
 84-103): on the card a shard's first batch of a shape is run and
-captured, and every later one replays the graph.  One host thread
+captured, and every later one replays the graph.  A backbone whose
+forward reads the host (its `capturable` is False: Point Transformer
+V3, whose shapes follow the points) runs its forward eagerly on the
+shard's stream, and the program captures the segmentation's argmax and
+the fit (`fit_heads`), whose shapes are the batch's (B, N); such a
+backbone's order shuffle is drawn once from the shard's seeded
+generator (`shuffles`), as the RANSAC draws are.  One host thread
 queues every shard's program before any result is read back, so shards
 on different cards run at once; threads would only contend for the
 interpreter's lock, since the fit is bound by the host's launches (two
@@ -33,7 +39,8 @@ returns stays the caller's for as long as the caller holds it.
 
 Under a trace (`utils/profiling.trace`) a call is the span
 "predictor.call call=<n>", holding "predictor.h2d" (the clouds to each
-shard's device), each shard's "program.capture" or "program.replay",
+shard's device), each shard's eager "predictor.forward" where the
+program holds only the fit, its "program.capture" or "program.replay",
 "predictor.d2h" (every field's copies queued) and "predictor.wait"
 (each shard's stream finishing, the copies with it); the last two carry
 the call's index as well, the others are known by their parent.  Inside
@@ -93,6 +100,18 @@ def forward_fit(model, P: torch.Tensor, part: torch.Tensor,
     fits = fit_frame_batch({k: pred[k] for k in POSE_KEYS if k in pred},
                            P, PoseDraws(part=part, joint=joint), pose_cfg)
     return {"pred": pred, "fits": fits, "segmentation": segmentation}
+
+
+def fit_heads(pred: Dict[str, torch.Tensor], P: torch.Tensor,
+              part: torch.Tensor, joint: torch.Tensor,
+              pose_cfg: PoseFitConfig) -> Dict[str, Any]:
+    """The segmentation and the fit of heads a forward outside the
+    program computed, queued: the body of each shard's program when the
+    backbone cannot be captured."""
+    segmentation = pred["W"].argmax(dim=-1)
+    fits = fit_frame_batch(pred, P, PoseDraws(part=part, joint=joint),
+                           pose_cfg)
+    return {"fits": fits, "segmentation": segmentation}
 
 
 @dataclasses.dataclass
@@ -190,8 +209,17 @@ class PosePredictor:
                 replicas[d] = copy.deepcopy(self.model).to(d)
         self._models = [replicas[d] for d in devices]
         self._generators = [torch.Generator(device=d) for d in devices]
+        self.captures_forward = getattr(self.model.backbone, "capturable",
+                                        True)
+        body = forward_fit if self.captures_forward else fit_heads
         self._programs = [compiled(functools.partial(
-            forward_fit, pose_cfg=self.pose_cfg)) for _ in devices]
+            body, pose_cfg=self.pose_cfg)) for _ in devices]
+        # each shard's order shuffle, for a backbone that takes one
+        self.shuffles = [None] * len(devices)
+        if hasattr(self.model.backbone, "draw_shuffle"):
+            for shard, g in enumerate(self._generators):
+                g.manual_seed(shard_seed(config.seed, shard))
+                self.shuffles[shard] = self.model.backbone.draw_shuffle(g)
         self._default_draws: Dict[Tuple[int, int], PoseDraws] = {}
         self.calls = 0          # calls served
         self.d2h_bytes = 0      # results copied to the host
@@ -200,8 +228,9 @@ class PosePredictor:
 
     def stage_ms(self) -> Dict[str, float]:
         """{stage: device ms} of the first data shard's last replayed call
-        (`compiled.Program.stage_ms`): "forward", then the fit's
-        "fit.partition", "fit.ransac" and "fit.joint"."""
+        (`compiled.Program.stage_ms`): "forward" (where the program holds
+        the forward), then the fit's "fit.partition", "fit.ransac" and
+        "fit.joint"."""
         return self._programs[0].stage_ms()
 
     def draws(self, batch: int, shard: int = 0) -> PoseDraws:
@@ -217,7 +246,8 @@ class PosePredictor:
         """Each data shard's `forward_fit` outputs, in shard order, left
         on its device: its rows of the (B, N, 3) host batch copied there,
         then its program queued with the caller's draws for the shard or
-        its own, drawn once a batch size."""
+        its own, drawn once a batch size; where the program holds only
+        the fit, the forward runs eagerly before it."""
         devices = self.batch_sharding.devices
         with span("predictor.h2d"):
             clouds = np.asarray(clouds, np.float32)
@@ -235,9 +265,17 @@ class PosePredictor:
                     if key not in self._default_draws:
                         self._default_draws[key] = self.draws(*key)
                     shard_draws = self._default_draws[key]
-                outs.append(self._programs[shard](
-                    self._models[shard], P, shard_draws.part,
-                    shard_draws.joint))
+                program = self._programs[shard]
+                if self.captures_forward:
+                    outs.append(program(self._models[shard], P,
+                                        shard_draws.part, shard_draws.joint))
+                    continue
+                with span("predictor.forward"):
+                    pred = self._models[shard](P,
+                                               shuffle=self.shuffles[shard])
+                heads = {k: pred[k] for k in POSE_KEYS if k in pred}
+                outs.append(dict(program(heads, P, shard_draws.part,
+                                         shard_draws.joint), pred=pred))
         return outs
 
     def _host(self, arrays, pinned: bool) -> torch.Tensor:

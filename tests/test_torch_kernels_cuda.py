@@ -1254,6 +1254,51 @@ def test_point_transformer_predictor_replays_the_eager_program(dev):
             "ptv1.d1.b1.attn", "ptv1.out", "forward"} <= set(names)
 
 
+def test_point_transformer_v3_predictor_replays_the_fit_alone(dev):
+    """Tiny widths on the card: the forward runs eagerly each call and
+    the fit is captured once and replayed, every output torch.equal to
+    the eager model (under the predictor's order shuffle) and
+    `fit_heads`; the replayed stages are the fit's; the structure the
+    card planned equals the plain reference's."""
+    import dataclasses
+
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import (POSE_KEYS,
+                                                    PosePredictor, fit_heads)
+    from posebench.drivers.serve_ptv3_offline import structure_gap
+    from posebench.reference import point_transformer_v3 as ref
+
+    cfg = NetworkConfig(backbone="point_transformer_v3",
+                        backbone_preset="tiny", compute_dtype="bfloat16")
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(5).rand(3, 4, 512, 3).astype(
+        np.float32) - 0.5
+    d = pred.draws(4)
+    leaves = torch.utils._pytree.tree_leaves
+    shuffle = pred.shuffles[0]
+    for c in clouds:
+        got = pred._run(c)[0]
+        P = torch.from_numpy(c).to(dev)
+        with torch.no_grad():
+            heads = pred.model(P, shuffle=shuffle)
+            want = fit_heads({k: heads[k] for k in POSE_KEYS}, P, d.part,
+                             d.joint, pred.pose_cfg)
+        for a, b in zip(leaves(got["fits"]), leaves(want["fits"])):
+            assert torch.equal(a, b)
+        assert torch.equal(got["segmentation"], want["segmentation"])
+        for k, v in heads.items():
+            assert torch.equal(got["pred"][k], v)
+    assert pred._programs[0].captures == 1
+    assert {"fit.partition", "fit.ransac", "fit.joint"} <= set(
+        pred.stage_ms())
+    spec = pred.model.backbone.spec
+    widths = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    levels, _, _ = ref.structure(P, widths, shuffle)
+    assert structure_gap(pred.model.backbone.structure, levels) == 0
+
+
 # ------------------------------------------------------------- joint_fit
 def _joint_inputs(dev, B, N, K, seed, **knobs):
     """The joint stage's inputs as fit_frame_batch builds them from random
