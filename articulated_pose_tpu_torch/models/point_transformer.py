@@ -44,13 +44,23 @@ Instruments: stage marks (`utils/profiling.stage`) name each stretch of
 a captured forward, "ptv1.<level>.<step>": those that end a k-NN
 search end in ".knn", those that end an attention layer in ".attn", a
 mark before each attention layer (".pre") closes the work before it.
-`knn_pairs` and `grouped_bytes` count what the last forward that Python
-ran searched and materialised: the (query, candidate) pairs of its k-NN
-searches, and the bytes of every tensor with a neighbour axis
+`knn_pairs`, `grouped_bytes`, `attention_kernel_layers` and
+`attention_plain_layers` count what the last forward that Python ran
+searched, materialised and dispatched: the (query, candidate) pairs of
+its k-NN searches; the bytes of every tensor with a neighbour axis
 (B, n, k, ·) that a step of it produced (a gather, a difference, a
 Linear's, batch norm's or activation's output, the softmax, the
-weighted terms), one count a step.  A replay repeats that forward, so
-its counts are each replay's.
+weighted terms), one count a step, none for an attention layer that
+took the kernel; and the attention layers that took the
+`vector_attention` kernel and the plain composition.  A replay repeats
+that forward, so its counts are each replay's.
+
+The attention layer after its q, k, v Linears (`attention_path`): a
+CUDA input in eval mode with grad off, in bf16 or f32, launches the
+`vector_attention` kernel (`ops/kernels/vector_attention.py`), one
+launch a layer that writes only the layer's output; training mode, a
+call that wants a gradient and a CPU tensor run the plain composition
+(`PointTransformerLayer.plain`), which is the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from torch import nn
 from articulated_pose_tpu_torch.models.layers import (ScheduledBatchNorm,
                                                      dropout)
 from articulated_pose_tpu_torch.ops import core
+from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
 from articulated_pose_tpu_torch.ops.kernels.fps import fps
 from articulated_pose_tpu_torch.ops.kernels.knn import knn
 from articulated_pose_tpu_torch.ops.kernels.three_nn import three_nn
@@ -136,6 +147,8 @@ class Tally:
     def __init__(self):
         self.pairs = 0
         self.grouped_bytes = 0
+        self.kernel_layers = 0
+        self.plain_layers = 0
 
     def grouped(self, t: torch.Tensor) -> torch.Tensor:
         self.grouped_bytes += t.numel() * t.element_size()
@@ -145,6 +158,16 @@ class Tally:
                ) -> torch.Tensor:
         self.pairs += xyz.shape[0] * queries.shape[1] * xyz.shape[1]
         return neighbours(k, xyz, queries)
+
+
+def attention_path(device: torch.device, training: bool, grad: bool,
+                   dtype: torch.dtype) -> str:
+    """"kernel" (`vector_attention`) for a CUDA input in eval mode with
+    grad off, in bf16 or f32; "plain" otherwise."""
+    if (device.type == "cuda" and not training and not grad
+            and dtype in va.DTYPES):
+        return "kernel"
+    return "plain"
 
 
 def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -184,10 +207,24 @@ class PointTransformerLayer(nn.Module):
         self.w_out = nn.Linear(C // share, C // share)
 
     def forward(self, p, x, nbr, m, tally: Tally):
-        dt, g = self.dtype, tally.grouped
-        B, n, k = nbr.shape
-        C = x.shape[-1]
+        dt = self.dtype
         q, key, v = (_linear(lin, x, dt) for lin in (self.q, self.k, self.v))
+        if attention_path(x.device, self.training, torch.is_grad_enabled(),
+                          dt) == "kernel":
+            tally.kernel_layers += 1
+            return va.vector_attention(self, p, q, key, v, nbr)
+        tally.plain_layers += 1
+        return self.plain(p, q, key, v, nbr, m, tally)
+
+    def plain(self, p, q, key, v, nbr, m=0.9,
+              tally: Optional[Tally] = None) -> torch.Tensor:
+        """The layer after its q, k, v Linears as plain torch ops, every
+        (B, n, k, ·) step in memory (counted on `tally`, if given); the
+        `vector_attention` kernel's plain version."""
+        dt = self.dtype
+        g = tally.grouped if tally is not None else (lambda t: t)
+        B, n, k = nbr.shape
+        C = q.shape[-1]
         rel = g(g(core.group_point(p, nbr)) - p[:, :, None])   # f32
         delta = g(_linear(self.pos_out, self.pos(rel, m, tally), dt))
         a = g(g(g(core.group_point(key, nbr)) - q[:, :, None]) + delta)
@@ -307,6 +344,8 @@ class PointTransformerBackbone(nn.Module):
         self.out_features = s.planes[0]
         self.knn_pairs = 0
         self.grouped_bytes = 0
+        self.attention_kernel_layers = 0
+        self.attention_plain_layers = 0
 
     def forward(self, X: torch.Tensor, bn_momentum=0.9,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -363,4 +402,6 @@ class PointTransformerBackbone(nn.Module):
         stage("ptv1.out")
         self.knn_pairs = tally.pairs
         self.grouped_bytes = tally.grouped_bytes
+        self.attention_kernel_layers = tally.kernel_layers
+        self.attention_plain_layers = tally.plain_layers
         return dropout(feat, s.dropout_rate, self.training, generator)

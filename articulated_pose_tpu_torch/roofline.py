@@ -174,6 +174,28 @@ def joint_fit_work(B: int, K: int, cap: int, H: int,
                 + 4 * J * (26 + 1 + H) + J * 2 * cap)
 
 
+def vector_attention_work(B: int, n: int, k: int, C: int,
+                          esize: int) -> Work:
+    """The `vector_attention` entry on B clouds of n queries, k
+    neighbours each, width C, q, key and v of `esize` bytes an element:
+    the f32 work is theta's Linear(3, C) and the weighted sum (4 C
+    multiply-adds a (query, neighbour) row); gamma's two products are
+    tensor-core work (`vector_attention_gamma_flops`).  Reads p, q, key,
+    v and the neighbours once, writes y (B, n, C) f32."""
+    rows = B * n * k
+    return Work(2 * rows * 4 * C,
+                4 * 3 * B * n + 3 * esize * B * n * C + 4 * B * n * k
+                + 4 * B * n * C)
+
+
+def vector_attention_gamma_flops(B: int, n: int, k: int, C: int,
+                                 share: int) -> float:
+    """gamma's Linear(C, C/share) and Linear(C/share, C/share) over the
+    B n k rows of a `vector_attention` call."""
+    G = C // share
+    return 2.0 * B * n * k * (C * G + G * G)
+
+
 def scanned_points(idx: torch.Tensor, cnt: torch.Tensor, N: int
                    ) -> Tuple[int, int]:
     """Points a first-S ball query has to examine for these hits: each
@@ -210,6 +232,11 @@ def kernel_work(name: str, args, kwargs, out) -> Work:
         B, K, cap = src.shape[:3]
         return joint_fit_work(B, K, cap, draws.shape[3],
                               launch_config(cfg, B, K, cap).score_points)
+    if name == "vector_attention":
+        q, nbr = _arg(args, kwargs, 2, "q"), _arg(args, kwargs, 5, "nbr")
+        B, n, C = q.shape
+        return vector_attention_work(B, n, nbr.shape[-1], C,
+                                     q.element_size())
     if name in THREE_NN:
         a, b = args[0], _arg(args, kwargs, 1, "xyz2")
         return three_nn_work(a.shape[0], a.shape[1], b.shape[1])

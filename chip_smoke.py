@@ -295,6 +295,16 @@ checkout of the repository, it exits non-zero and prints no result.
    the tables were read on
    (`python3 chip_smoke.py --joint-orders` runs this alone after the
    build).
+20. The `vector_attention` kernel (the Point Transformer's attention
+   layer after its q, k, v Linears, one launch a layer) at the cell's
+   five levels (B=16, bf16, eval mode, seeded weights and batch-norm
+   state): held to the plain layer (`PointTransformerLayer.plain`) as
+   `vector_attention_held` says, then its ms beside the plain layer's
+   and its bound, the largest of gamma's two products at 989 TFLOP/s,
+   theta's Linear(3, C) and the weighted sum at 67 TFLOP/s and p, q,
+   k, v, the neighbours and y at 3.35 TB/s, each printed
+   (`python3 chip_smoke.py --vector-attention` runs this phase alone
+   after the build; phase 18 counts 18 launches a served batch).
 """
 
 from __future__ import annotations
@@ -4121,6 +4131,110 @@ def ptv1_knn_times(dev) -> dict:
     return kernel_result(max(errs), times, shapes, bounds)
 
 
+# the cell's five attention levels at B=16: (n points, C, k)
+VA_LEVELS = ((8192, 32, 8), (2048, 64, 16), (512, 128, 16), (128, 256, 16),
+             (32, 512, 16))
+
+
+def vector_attention_held(got, want, dtype) -> dict:
+    """The kernel's y against the plain layer's on the same inputs.  Only
+    the order of f32 sums differs (the products over C and G, the sum over
+    k), which moves y by a few f32 ulps of its terms: each element within
+    1e-4 of y's largest ("near").  In bf16 such a sum may also round a
+    value to the neighbouring bf16 at one of the layer's rounding points;
+    the row's later values follow it, so a few per cent of the outputs
+    may move further, each within 2^-6 of y's largest.  Raises outside
+    that; returns the near share and the largest difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"vector_attention: y {got.dtype} "
+                             f"{tuple(got.shape)}, finite "
+                             f"{torch.isfinite(got).all().item()}")
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    near = (diff <= 1e-4 * scale).float().mean().item()
+    worst = diff.max().item()
+    out = dict(near_share=near, max_abs_err=worst, scale=scale)
+    least = 1.0 if dtype == torch.float32 else 0.97
+    if near < least or worst > 2 ** -6 * scale:
+        raise AssertionError(f"vector_attention {tuple(got.shape)} {dtype}: "
+                             f"{out}")
+    return out
+
+
+def vector_attention_layer(C: int, dtype, dev, seed: int = 0):
+    """A PointTransformerLayer in eval mode on the card: Linear weights at
+    their default initialisation from the seed, each batch norm's affine
+    and running statistics drawn, so none is an identity."""
+    import torch
+
+    from articulated_pose_tpu_torch.models import point_transformer as pt
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        layer = pt.PointTransformerLayer(C, 8, dtype)
+        with torch.no_grad():
+            for bn in (layer.pos.bn, layer.w_bn, layer.w.bn):
+                bn.weight.copy_(1 + 0.2 * torch.randn(bn.weight.shape))
+                bn.bias.copy_(0.1 * torch.randn(bn.bias.shape))
+                bn.running_mean.copy_(0.1 * torch.randn(bn.bias.shape))
+                bn.running_var.copy_(0.5 + torch.rand(bn.bias.shape))
+    return layer.to(dev).eval()
+
+
+def vector_attention_times(dev, dtype_name: str = "bfloat16") -> dict:
+    """Phase 20: the `vector_attention` kernel at the cell's five levels
+    (B=16): held to the plain layer (`vector_attention_held`), then its
+    ms, the plain layer's and the bound (roofline.vector_attention_work
+    and _gamma_flops).  Returns its entry of the kernels' JSON line
+    (`kernel_result`)."""
+    import torch
+
+    from articulated_pose_tpu_torch import roofline, timing
+    from articulated_pose_tpu_torch.models import point_transformer as pt
+    from articulated_pose_tpu_torch.ops.kernels import knn
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    dtype = getattr(torch, dtype_name)
+    times, shapes, bounds, errs = [], [], [], []
+    for n, C, k in VA_LEVELS:
+        rng = np.random.RandomState(n + C)
+        layer = vector_attention_layer(C, dtype, dev, seed=C)
+        p = torch.from_numpy(rng.rand(PTV1_B, n, 3).astype(np.float32)
+                             ).to(dev)
+        x = torch.from_numpy(rng.randn(PTV1_B, n, C).astype(np.float32)
+                             ).to(dev)
+        nbr = knn.knn(k, p, p)[1]
+        with torch.no_grad():
+            q, key, v = (pt._linear(lin, x, dtype)
+                         for lin in (layer.q, layer.k, layer.v))
+            args = (layer, p, q, key, v, nbr)
+            held = vector_attention_held(va.vector_attention(*args),
+                                         va.vector_attention_plain(*args),
+                                         dtype)
+            errs.append(held["max_abs_err"])
+            times.append(time_both(lambda: va.vector_attention(*args),
+                                   lambda: va.vector_attention_plain(*args)))
+        work = roofline.vector_attention_work(PTV1_B, n, k, C,
+                                              q.element_size())
+        gamma_ms = roofline.vector_attention_gamma_flops(
+            PTV1_B, n, k, C, 8) / timing.TENSOR_PEAK_FLOPS * 1e3
+        ops_ms, bytes_ms = timing.roofline_ms(work.flops, work.bytes)
+        bounds.append((max(gamma_ms, ops_ms), bytes_ms))
+        shapes.append([PTV1_B, n, C, k])
+        log(f"[vector_attention] B={PTV1_B} n={n} C={C} k={k} {dtype_name}: "
+            f"near share {held['near_share']:.5f}, max |diff| "
+            f"{held['max_abs_err']:.3e} of {held['scale']:.3e}; "
+            f"{times[-1][4]}; floors: gamma {gamma_ms:.4f} ms, theta and "
+            f"the sum {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms")
+        del layer, p, x, nbr, q, key, v, args
+        torch.cuda.empty_cache()
+    return kernel_result(max(errs), times, shapes, bounds)
+
+
 JOINT_FIT_SHAPES = ((64, 2048), (16, 8192), (256, 2048))
 
 
@@ -4290,7 +4404,7 @@ def ptv1_serve(dev):
         batches = -(-PTV1_FRAMES // PTV1_B)
         check_launches("serve ptv1", counts, knn=9 * batches,
                        fps=4 * batches, three_nn=4 * batches,
-                       joint_fit=batches)
+                       joint_fit=batches, vector_attention=18 * batches)
         got = np.load(out_npz)
         if got["R"].shape != (PTV1_FRAMES, cfg.n_max_parts, 3, 3) or not \
                 np.isfinite(got["R"]).all():
@@ -4361,7 +4475,7 @@ def main() -> int:
     log(f"[host] native library (labeling, ball renderer; g++): {found}")
 
     t0 = time.perf_counter()
-    # the thirteen kernels and the card-limits probe's (phase 16)
+    # the fourteen kernels and the card-limits probe's (phase 16)
     built = [*KERNELS.values(), *PROBE_KERNELS]
     seconds = build_all(built)
     logs = {k.source: k.build_log() for k in built}
@@ -4385,6 +4499,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--joint-fit"]:
         with phase("19 joint_fit"):
             log(json.dumps({"joint_fit": joint_fit_times(dev)}))
+        return 0
+    if sys.argv[1:2] == ["--vector-attention"]:
+        with phase("20 vector_attention"):
+            log(json.dumps({"vector_attention": vector_attention_times(
+                dev, *sys.argv[2:3])}))
         return 0
     if sys.argv[1:2] == ["--joint-orders"]:
         with phase("19 joint_fit product orders"):
@@ -4430,6 +4549,8 @@ def main() -> int:
     with phase("19 joint_fit"):
         kernels["joint_fit"] = joint_fit_times(dev)
         joint_orders(dev)
+    with phase("20 vector_attention"):
+        kernels["vector_attention"] = vector_attention_times(dev)
     for name, k in kernels.items():
         k["launches"] = sum(c[name] for c in paths.values())
         if k["launches"] == 0:

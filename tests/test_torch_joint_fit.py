@@ -29,7 +29,7 @@ def _inputs(B=2, N=96, K=3, seed=0, **knobs):
 
 
 def test_kernels_has_joint_fit_with_its_source_and_counter():
-    assert len(KERNELS) == 13
+    assert len(KERNELS) == 14
     k = KERNELS["joint_fit"]
     assert k is jf.KERNEL
     assert k.source == "joint_fit.cu"

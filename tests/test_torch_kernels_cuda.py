@@ -37,7 +37,12 @@ program's stage mark times a known spin of the card within 5 % of
 eager events, and the replayed predictor reads its four stages; its
 results own page-locked host blocks that later calls reuse once
 dropped and never overwrite while held; a capture runs with the garbage
-collector off.
+collector off.  The vector_attention kernel holds the plain Point
+Transformer layer's output (within f32 sum orders, and a bf16 rounding
+flipped in at most a few per cent of outputs) at the cell's five levels
+in bf16 and f32, at any k up to 16, with planted ties, and refuses what
+it does not take; the published-width predictor launches it in all 18
+layers.
 """
 
 import numpy as np
@@ -1465,3 +1470,222 @@ def test_dot3_orders_hold_at_the_fits_counts(dev, form):
     for n in FIT_COUNTS[form]:
         order = jf.dot_order(n, form == "mvt")
         assert order in jf.dot3_orders(n, form, dev, seed=n), (n, order)
+
+
+# ------------------------------------------------------ vector_attention
+# the Point Transformer cell's five levels at B=16: (n points, C, k)
+VA_LEVELS = [(8192, 32, 8), (2048, 64, 16), (512, 128, 16), (128, 256, 16),
+             (32, 512, 16)]
+VA_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _va_layer(C, dt, dev, seed=0, share=8):
+    """A PointTransformerLayer in eval mode on the card: Linear weights
+    at their default initialisation from the seed, each batch norm's
+    affine and running statistics drawn, so none is an identity."""
+    from articulated_pose_tpu_torch.models import point_transformer as pt
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        layer = pt.PointTransformerLayer(C, share, dt)
+        with torch.no_grad():
+            for bn in (layer.pos.bn, layer.w_bn, layer.w.bn):
+                bn.weight.copy_(1 + 0.2 * torch.randn(bn.weight.shape))
+                bn.bias.copy_(0.1 * torch.randn(bn.bias.shape))
+                bn.running_mean.copy_(0.1 * torch.randn(bn.bias.shape))
+                bn.running_var.copy_(0.5 + torch.rand(bn.bias.shape))
+    return layer.to(dev).eval()
+
+
+def _va_inputs(layer, B, n, k, dev, seed=0, nbr=None):
+    """The layer's inputs as the backbone forms them: a level's cloud,
+    its k nearest (the `knn` kernel) and q, key, v of a random feature."""
+    from articulated_pose_tpu_torch.models import point_transformer as pt
+
+    rng = np.random.RandomState(seed)
+    p = torch.from_numpy(rng.rand(B, n, 3).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(B, n, layer.q.in_features).astype(
+        np.float32)).to(dev)
+    if nbr is None:
+        nbr = knn.knn(k, p, p)[1]
+    q, key, v = (pt._linear(lin, x, layer.dtype)
+                 for lin in (layer.q, layer.k, layer.v))
+    return p, q, key, v, nbr
+
+
+def _va_held(got, want, dt):
+    """The kernel's y against the plain layer's.  Only the order of f32
+    sums differs (the products over C and G, the sum over k), which moves
+    y by a few f32 ulps of its terms: each element within 1e-4 of y's
+    largest.  In bf16 such a sum may also round a value to the
+    neighbouring bf16 at one of the layer's rounding points (a flip of one
+    ulp); the row's later values follow it, so a few per cent of the
+    outputs may move further, each within 2^-6 of y's largest."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    diff = (got - want).abs()
+    near = (diff <= 1e-4 * scale).float().mean().item()
+    worst = diff.max().item()
+    print(f"vector_attention {tuple(got.shape)} {dt}: near share "
+          f"{near:.5f}, exact share {(got == want).float().mean().item():.5f}"
+          f", max |diff| {worst:.3e} of {scale:.3e}")
+    assert near >= (1.0 if dt == torch.float32 else 0.97), near
+    assert worst <= 2 ** -6 * scale, (worst, scale)
+
+
+@pytest.mark.parametrize("dt", list(VA_DTYPES))
+@pytest.mark.parametrize("n,C,k", VA_LEVELS)
+def test_vector_attention_matches_the_plain_layer(dev, n, C, k, dt):
+    """Each level's layer at the cell's shapes (B=16): one launch, y held
+    to the plain layer's (`_va_held`)."""
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    dt = VA_DTYPES[dt]
+    layer = _va_layer(C, dt, dev, seed=C)
+    args = _va_inputs(layer, 16, n, k, dev, seed=n)
+    with torch.no_grad():
+        before = KERNELS["vector_attention"].launches
+        got = va.vector_attention(layer, *args)
+        torch.cuda.synchronize()
+        assert KERNELS["vector_attention"].launches == before + 1
+        want = layer.plain(*args)
+    _va_held(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", list(VA_DTYPES))
+@pytest.mark.parametrize("C,k,B,n", [(16, 8, 2, 200), (32, 1, 3, 77),
+                                     (32, 5, 1, 100), (64, 12, 2, 45),
+                                     (256, 3, 1, 7), (512, 9, 2, 21)])
+def test_vector_attention_takes_any_k_and_a_ragged_last_tile(dev, C, k, B,
+                                                             n, dt):
+    """The tiny widths (C=16, 32), k below the kernel's 8 or 16 row slots
+    a query, and query counts that leave the last CTA part empty."""
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    dt = VA_DTYPES[dt]
+    layer = _va_layer(C, dt, dev, seed=k)
+    args = _va_inputs(layer, B, n, k, dev, seed=n)
+    with torch.no_grad():
+        _va_held(va.vector_attention(layer, *args), layer.plain(*args), dt)
+
+
+@pytest.mark.parametrize("dt", list(VA_DTYPES))
+def test_vector_attention_planted_ties_one_cloud(dev, dt):
+    """B=1 with duplicate neighbour indices: every query's k=16 rows name
+    8 points twice, and query 0 names one point 16 times, so rows and
+    logits tie across j."""
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    dt = VA_DTYPES[dt]
+    n = 512
+    layer = _va_layer(128, dt, dev, seed=3)
+    rng = np.random.RandomState(4)
+    half = rng.randint(0, n, size=(1, n, 8))
+    nbr = np.concatenate([half, half], axis=-1)
+    nbr[0, 0] = 7
+    nbr = torch.from_numpy(nbr.astype(np.int32)).to(dev)
+    args = _va_inputs(layer, 1, n, 16, dev, seed=5, nbr=nbr)
+    with torch.no_grad():
+        got = va.vector_attention(layer, *args)
+        _va_held(got, layer.plain(*args), dt)
+
+
+def test_vector_attention_refuses_what_the_kernel_does_not_take(dev):
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    layer = _va_layer(64, torch.bfloat16, dev)
+    p, q, key, v, nbr = _va_inputs(layer, 2, 64, 16, dev)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="outside"):
+            va.vector_attention(layer, p, q, key, v,
+                                torch.cat([nbr, nbr[..., :1]], -1))
+        with pytest.raises(ValueError, match="int32"):
+            va.vector_attention(layer, p, q, key, v, nbr.long())
+        with pytest.raises(ValueError, match="layer's dtype"):
+            va.vector_attention(layer, p, q.float(), key, v, nbr)
+        odd = _va_layer(20, torch.bfloat16, dev)
+        with pytest.raises(ValueError, match="not divisible"):
+            va.vector_attention(odd, *_va_inputs(odd, 2, 64, 8, dev))
+        wide = _va_layer(1024, torch.bfloat16, dev)
+        with pytest.raises(ValueError, match="above 512"):
+            va.vector_attention(wide, *_va_inputs(wide, 1, 16, 8, dev))
+        other = _va_layer(48, torch.bfloat16, dev)
+        with pytest.raises(ValueError, match="takes C in"):
+            va.vector_attention(other, *_va_inputs(other, 1, 16, 8, dev))
+        layer.train()
+        with pytest.raises(ValueError, match="training mode"):
+            va.vector_attention(layer, p, q, key, v, nbr)
+        layer.eval()
+    with pytest.raises(ValueError, match="gradient"):
+        va.vector_attention(layer, p, q, key, v, nbr)
+
+
+def test_vector_attention_bn_scale_is_torchs(dev):
+    """The kernel's batch-norm scale, rsqrt(var + eps) * weight, equals
+    torch's bit for bit (ScheduledBatchNorm's eval path), also at tiny,
+    huge and zero variances."""
+    from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
+
+    rng = np.random.RandomState(0)
+    var = np.concatenate([rng.rand(4000), 10.0 ** rng.uniform(-12, 12, 4000),
+                          [0.0, 1e-5, 1.0, 3e38]]).astype(np.float32)
+    var = torch.from_numpy(var).to(dev)
+    weight = torch.from_numpy(rng.randn(var.numel()).astype(np.float32)
+                              ).to(dev)
+    for eps in (1e-5, 1e-3):
+        assert torch.equal(va.bn_scale(var, weight, eps),
+                           torch.rsqrt(var + eps) * weight)
+
+
+def _transitions_grouped_bytes(spec, B, N, esize):
+    """Bytes of the (n, k, .) tensors the transitions down materialise in
+    one forward: for each level past the first, the grouped xyz and its
+    difference (f32), the grouped feature, the concatenation and the
+    Linear's, batch norm's and ReLU's outputs (the compute dtype)."""
+    sizes = spec.level_points(N)
+    total = 0
+    for i in range(1, len(spec.planes)):
+        cin, cout = spec.planes[i - 1], spec.planes[i]
+        total += B * sizes[i] * spec.nsample[i] * (
+            2 * 4 * 3 + esize * (cin + 3 + cin + 3 * cout))
+    return total
+
+
+def test_point_transformer_predictor_launches_the_attention_kernel(dev):
+    """The published widths (B=2, N=4096): the served program's forward
+    takes the kernel in all 18 attention layers and the plain path in
+    none, a replay launches it 18 times, every output equals the eager
+    `forward_fit`, and the forward materialises the transitions' (n, k,
+    .) tensors alone."""
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
+
+    cfg = NetworkConfig(backbone="point_transformer",
+                        compute_dtype="bfloat16")
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    bb = pred.model.backbone
+    B, N = 2, 4096
+    clouds = np.random.RandomState(6).rand(3, B, N, 3).astype(np.float32)
+    d = pred.draws(B)
+    leaves = torch.utils._pytree.tree_leaves
+    for c in clouds:
+        before = KERNELS["vector_attention"].launches
+        got = pred._run(c)[0]
+        torch.cuda.synchronize()
+        launched = KERNELS["vector_attention"].launches - before
+        # the counters of the last forward Python ran: the eager call's,
+        # then the capture's
+        assert (bb.attention_kernel_layers, bb.attention_plain_layers) \
+            == (18, 0)
+        assert bb.grouped_bytes == _transitions_grouped_bytes(
+            bb.spec, B, N, 2)
+        with torch.no_grad():
+            want = forward_fit(pred.model, torch.from_numpy(c).to(dev),
+                               d.part, d.joint, pred.pose_cfg)
+        for a, b in zip(leaves(got), leaves(want)):
+            assert torch.equal(a, b)
+    # the last call replayed the captured graph
+    assert launched == 18

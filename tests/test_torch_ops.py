@@ -24,7 +24,7 @@ from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels import (ball_query, fps, knn,
                                                     launch_counts,
                                                     reset_launch_counts,
-                                                    three_nn)
+                                                    three_nn, vector_attention)
 
 
 def _t(x):
@@ -170,6 +170,19 @@ class TestInterpolateAndGroup:
             atol=1e-6)
 
 
+def _attention_inputs(device):
+    """A Point Transformer attention layer (C=16, eval) on `device` with
+    its inputs: points, q, key, v and 8 neighbours of 32 points."""
+    from articulated_pose_tpu_torch.models import point_transformer as pt
+
+    layer = pt.PointTransformerLayer(16, 8, torch.float32).eval()
+    p = _t(_cloud(5, 2, 32))
+    nbr = core.knn_point(8, p, p)[1]
+    q, key, v = (_t(np.random.RandomState(s).randn(2, 32, 16).astype(
+        np.float32)) for s in (1, 2, 3))
+    return [t.to(device) for t in (layer, p, q, key, v, nbr)]
+
+
 class TestDispatch:
     def test_cpu_tensors_take_the_plain_versions(self):
         reset_launch_counts()
@@ -212,6 +225,11 @@ class TestDispatch:
         d, j = knn.knn(8, xyz, x1)
         dp, jp = knn.knn_plain(8, xyz, x1)
         assert torch.equal(d, dp) and torch.equal(j, jp)
+        layer, *args = _attention_inputs("cpu")
+        with torch.no_grad():
+            assert torch.equal(vector_attention.vector_attention(layer, *args),
+                               vector_attention.vector_attention_plain(layer,
+                                                                       *args))
         assert launch_counts() == {"fps2": 0, "fps": 0, "ball_query_group": 0,
                                    "ball_query_group_packed": 0,
                                    "ball_query_idx": 0,
@@ -220,7 +238,7 @@ class TestDispatch:
                                    "ball_query_group_bucket": 0,
                                    "three_nn": 0, "three_nn_stream": 0,
                                    "three_nn_packed": 0, "knn": 0,
-                                   "joint_fit": 0}
+                                   "joint_fit": 0, "vector_attention": 0}
 
     def test_other_devices_are_refused(self):
         xyz = torch.zeros((1, 8, 3), device="meta")
@@ -248,3 +266,6 @@ class TestDispatch:
             three_nn.three_nn_packed(xyz, xyz)
         with pytest.raises(ValueError, match="CUDA"):
             knn.knn(4, xyz, xyz)
+        layer, *args = _attention_inputs("meta")
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            vector_attention.vector_attention(layer, *args)

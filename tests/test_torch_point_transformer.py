@@ -5,7 +5,9 @@ random weights at tiny widths, on the CPU: each module alone (the
 attention layer, the block, both transitions, the head transition),
 then the whole ANCSH forward in float32 and in the bf16 trunk's
 rounding; the k-NN tie rule; the level-size check; `PosePredictor` on a
-Point Transformer config; and one train step's gradients.
+Point Transformer config; one train step's gradients; and the attention's
+dispatch between the `vector_attention` kernel and the plain layer, with
+the counters that say which each layer took.
 
 Tolerances.  In float32 the port and the reference run the same
 operations in the same order on the same device, so they agree to the
@@ -25,6 +27,7 @@ from articulated_pose_tpu_torch.models import point_transformer as pt
 from articulated_pose_tpu_torch.models.ancsh import build_model
 from articulated_pose_tpu_torch.ops import core
 from articulated_pose_tpu_torch.ops.kernels import knn as knn_entry
+from articulated_pose_tpu_torch.ops.kernels import vector_attention as va
 from articulated_pose_tpu_torch.pose.pipeline import PoseDraws
 from articulated_pose_tpu_torch.serving import PosePredictor, forward_fit
 from articulated_pose_tpu_torch.train.state import (TrainState,
@@ -168,6 +171,149 @@ def test_counters_count_the_last_forward():
     with torch.no_grad():
         port(_cloud(2, 256, 2))
     assert bb.grouped_bytes == first
+
+
+# the attention layers of SPEC's forward: blocks (1, 2, 1) and one a
+# decoder level
+SPEC_LAYERS = sum(SPEC.blocks) + len(SPEC.planes)
+
+
+def _transitions_grouped_bytes(spec, B, N, esize):
+    """Bytes of the (n, k, ·) tensors the transitions down materialise in
+    one forward: for each level past the first, the grouped xyz and its
+    difference (f32), the grouped feature, the concatenation and the
+    Linear's, batch norm's and ReLU's outputs (the compute dtype)."""
+    sizes = spec.level_points(N)
+    total = 0
+    for i in range(1, len(spec.planes)):
+        cin, cout = spec.planes[i - 1], spec.planes[i]
+        total += B * sizes[i] * spec.nsample[i] * (
+            2 * 4 * 3 + esize * (cin + 3 + cin + 3 * cout))
+    return total
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_attention_path_takes_the_kernel_on_the_card_in_eval_without_grad(
+        device, training, grad, dtype):
+    """The dispatch rule: the kernel for a CUDA input in eval mode with
+    grad off, in bf16 or f32; the plain composition for training mode, a
+    call that wants a gradient, a CPU tensor or another dtype."""
+    want = ("kernel" if device == "cuda" and not training and not grad
+            and dtype != torch.float16 else "plain")
+    assert pt.attention_path(torch.device(device), training, grad,
+                             dtype) == want
+
+
+def test_training_grad_and_cpu_calls_take_the_plain_path():
+    """On the CPU every call takes the plain composition, and the
+    backbone's counters say so for the forward that ran last: in eval
+    mode with grad off and on, and in training mode."""
+    port, _ = _models("bf16")
+    bb = port.backbone
+    P = _cloud(2, 256, 1)
+    for training, grad in ((False, False), (False, True), (True, False)):
+        port.train(training)
+        with torch.set_grad_enabled(grad):
+            port(P)
+        assert (bb.attention_kernel_layers, bb.attention_plain_layers) == \
+            (0, SPEC_LAYERS)
+        assert bb.grouped_bytes > _transitions_grouped_bytes(SPEC, 2, 256, 2)
+
+
+@pytest.mark.parametrize("matmul", ["f32", "bf16"])
+def test_kernel_dispatch_counts_its_layers_and_no_grouped_bytes(
+        monkeypatch, matmul):
+    """With the dispatch sending every layer to the `vector_attention`
+    entry (whose CPU version is the plain composition), the forward is
+    unchanged, the counters read every layer as the kernel's and none as
+    plain, and `grouped_bytes` counts the transitions' tensors alone;
+    both counters follow the last forward."""
+    port, _ = _models(matmul)
+    bb = port.backbone
+    P = _cloud(2, 256, 1)
+    with torch.no_grad():
+        want = port(P)
+        plain_bytes = bb.grouped_bytes
+    calls = []
+    kernel_entry = va.vector_attention
+
+    def entry(layer, *args):
+        calls.append(layer)
+        return kernel_entry(layer, *args)
+
+    monkeypatch.setattr(pt, "attention_path", lambda *a: "kernel")
+    monkeypatch.setattr(pt.va, "vector_attention", entry)
+    with torch.no_grad():
+        got = port(P)
+    assert len(calls) == SPEC_LAYERS
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert (bb.attention_kernel_layers, bb.attention_plain_layers) == \
+        (SPEC_LAYERS, 0)
+    esize = 4 if matmul == "f32" else 2
+    assert bb.grouped_bytes == _transitions_grouped_bytes(SPEC, 2, 256, esize)
+    assert bb.grouped_bytes < plain_bytes
+    monkeypatch.undo()
+    with torch.no_grad():
+        port(P)
+    assert (bb.attention_kernel_layers, bb.attention_plain_layers) == \
+        (0, SPEC_LAYERS)
+    assert bb.grouped_bytes == plain_bytes
+
+
+def test_vector_attention_entry_is_the_plain_layer_on_the_cpu():
+    """The entry's CPU version is the layer's plain composition; under a
+    work counter it counts as one `vector_attention` call with the
+    kernel's work from the shapes."""
+    from articulated_pose_tpu_torch import roofline
+
+    layer = pt.PointTransformerLayer(32, 8, torch.bfloat16).eval()
+    p, x, nbr = _level(n=64, k=8, C=32)
+    with torch.no_grad():
+        q, key, v = (pt._linear(lin, x, torch.bfloat16)
+                     for lin in (layer.q, layer.k, layer.v))
+        want = layer.plain(p, q, key, v, nbr)
+        assert torch.equal(va.vector_attention(layer, p, q, key, v, nbr),
+                           want)
+        c = roofline.count(lambda: va.vector_attention(layer, p, q, key, v,
+                                                       nbr))
+    assert c.kernels == {"vector_attention": 1}
+    assert c.kernel_flops == roofline.vector_attention_work(
+        2, 64, 8, 32, 2).flops == 2 * 2 * 64 * 8 * 4 * 32
+
+
+def test_vector_attention_refuses_what_the_kernel_does_not_take():
+    def inputs(C, share=8, k=8, n=32, dt=torch.bfloat16):
+        layer = pt.PointTransformerLayer(C, share, dt).eval()
+        p, x, nbr = _level(n=n, k=k, C=C)
+        q, key, v = (pt._linear(lin, x, dt)
+                     for lin in (layer.q, layer.k, layer.v))
+        return layer, p, q, key, v, nbr
+
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="outside"):
+            va.vector_attention(*inputs(64, k=17))
+        with pytest.raises(ValueError, match="not divisible"):
+            va.vector_attention(*inputs(20))
+        with pytest.raises(ValueError, match="above 512"):
+            va.vector_attention(*inputs(1024))
+        with pytest.raises(ValueError, match="takes C in"):
+            va.vector_attention(*inputs(48))
+        with pytest.raises(ValueError, match="takes C in"):
+            va.vector_attention(*inputs(64, share=4))
+        layer, p, q, key, v, nbr = inputs(64)
+        with pytest.raises(ValueError, match="int32"):
+            va.vector_attention(layer, p, q, key, v, nbr.long())
+        with pytest.raises(ValueError, match="layer's dtype"):
+            va.vector_attention(layer, p, q.float(), key, v, nbr)
+        layer, p, q, key, v, nbr = inputs(64, n=8)
+        with pytest.raises(ValueError, match="exceeds"):
+            va.vector_attention(layer, p, q, key, v,
+                                torch.cat([nbr, nbr[..., :4]], -1))
 
 
 def test_knn_ties_go_to_the_lower_index():
