@@ -12,9 +12,10 @@ small reader of its own (`read_flat_yaml`), so it needs no PyYAML, and
 it refuses a key that neither package knows, as JAX's `load_config`
 does.  One key is the port's alone (`PORT_FIELDS`): `backbone`, which
 picks PointNet++ ("pointnet2", the JAX package's only backbone), the
-Point Transformer ("point_transformer", `models/point_transformer.py`)
-or Point Transformer V3 ("point_transformer_v3",
-`models/point_transformer_v3.py`).
+Point Transformer ("point_transformer", `models/point_transformer.py`),
+Point Transformer V3 ("point_transformer_v3",
+`models/point_transformer_v3.py`) or MinkUNet34C ("minkunet",
+`models/minkunet.py`).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ JAX_FIELDS = (
     "mesh_shape", "seed")
 # the keys only the port knows, which load_config accepts beside JAX's
 PORT_FIELDS = ("backbone",)
-BACKBONES = ("pointnet2", "point_transformer", "point_transformer_v3")
+BACKBONES = ("pointnet2", "point_transformer", "point_transformer_v3",
+             "minkunet")
 
 
 @dataclasses.dataclass

@@ -16,12 +16,13 @@ widths) or the Point Transformer's segmentation feature (32;
 `models/point_transformer.py`), which a `PointTransformerSpec` as
 `backbone_spec` selects, or Point Transformer V3's decoder output (64;
 `models/point_transformer_v3.py`, a `PointTransformerV3Spec`), which
-`forward` hands the order shuffle it is given.  `folded_bn_layers`
-counts the batch norms that a forward in the model's current mode folds
-into their Linear (`layers.PointConv`): 17 in the reference PointNet++
-network in eval mode, 0 in training and on the Point Transformers, whose
-own norms are not `PointConv`s; the joint head's two are never folded
-(`JointHead`).
+`forward` hands the order shuffle it is given, or MinkUNet34C's last
+decoder stage (96; `models/minkunet.py`, a `MinkUNetSpec`).
+`folded_bn_layers` counts the batch norms that a forward in the model's
+current mode folds into their Linear (`layers.PointConv`): 17 in the
+reference PointNet++ network in eval mode, 0 in training and on the
+other backbones, whose own norms are not `PointConv`s; the joint head's
+two are never folded (`JointHead`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ from torch import nn
 
 from articulated_pose_tpu_torch.models.layers import (PointConv, dropout,
                                                      init_weights)
+from articulated_pose_tpu_torch.models.minkunet import (MINK_TINY_WIDTHS,
+                                                        MinkUNetBackbone,
+                                                        MinkUNetSpec)
 from articulated_pose_tpu_torch.models.point_transformer import (
     PT_TINY_WIDTHS, PointTransformerBackbone, PointTransformerSpec)
 from articulated_pose_tpu_torch.models.point_transformer_v3 import (
@@ -89,14 +93,15 @@ class JointHead(nn.Module):
 class ANCSHModel(nn.Module):
     """Full per-point multi-head model; `mixed` selects ANCSH (part +
     global NOCS) over NPCS (part NOCS only).  A `PointTransformerSpec`
-    builds the Point Transformer backbone and a `PointTransformerV3Spec`
-    Point Transformer V3; they take none of PointNet++'s policy knobs
-    (`pool_dtype`, `act_dtype`, `f32_stages`) and no input features."""
+    builds the Point Transformer backbone, a `PointTransformerV3Spec`
+    Point Transformer V3 and a `MinkUNetSpec` MinkUNet; they take none
+    of PointNet++'s policy knobs (`pool_dtype`, `act_dtype`,
+    `f32_stages`) and no input features."""
 
     def __init__(self, n_max_parts: int = 3, mixed: bool = True,
                  pred_joint: bool = True, early_split_nocs: bool = True,
                  backbone_spec: Union[BackboneSpec, PointTransformerSpec,
-                                      PointTransformerV3Spec]
+                                      PointTransformerV3Spec, MinkUNetSpec]
                  = BackboneSpec(),
                  dtype: torch.dtype = torch.float32,
                  head_dtype: Optional[torch.dtype] = None,
@@ -109,14 +114,15 @@ class ANCSHModel(nn.Module):
         self.mixed = mixed
         self.pred_joint = pred_joint
         self.early_split_nocs = early_split_nocs
-        transformers = {PointTransformerSpec: PointTransformerBackbone,
-                        PointTransformerV3Spec: PointTransformerV3Backbone}
-        if type(backbone_spec) in transformers:
+        others = {PointTransformerSpec: PointTransformerBackbone,
+                  PointTransformerV3Spec: PointTransformerV3Backbone,
+                  MinkUNetSpec: MinkUNetBackbone}
+        if type(backbone_spec) in others:
             knobs = {"pool_dtype": pool_dtype, "act_dtype": act_dtype,
                      "f32_stages": tuple(f32_stages) or None,
                      "in_features": in_features or None}
             given = sorted(k for k, v in knobs.items() if v is not None)
-            backbone = transformers[type(backbone_spec)]
+            backbone = others[type(backbone_spec)]
             if given:
                 raise ValueError(f"the {backbone.__name__} takes none of "
                                  f"{given}")
@@ -204,15 +210,17 @@ def build_model(config, generator: Optional[torch.Generator] = None,
                 ) -> ANCSHModel:
     """The model of a NetworkConfig, in eval mode, with the reference's
     initialisation drawn from `generator`.  `config.backbone` picks
-    PointNet++ or the Point Transformer.  The ball-query route follows
-    `use_pallas` and `ball_query_packed`, the dtypes the mixed-precision
-    knobs, as the JAX package's build_model maps them (ancsh.py:153-186).
+    PointNet++, the Point Transformer, Point Transformer V3 or MinkUNet.
+    The ball-query route follows `use_pallas` and `ball_query_packed`,
+    the dtypes the mixed-precision knobs, as the JAX package's
+    build_model maps them (ancsh.py:153-186).
     `spec` gives the backbone's widths in place of `backbone_preset`'s
     (the tests' tiny backbones); the config still sets its dropout rate
     and ball-query route."""
     specs = {"point_transformer": (PointTransformerSpec, PT_TINY_WIDTHS),
              "point_transformer_v3": (PointTransformerV3Spec,
-                                      PTV3_TINY_WIDTHS)}
+                                      PTV3_TINY_WIDTHS),
+             "minkunet": (MinkUNetSpec, MINK_TINY_WIDTHS)}
     if config.backbone_preset not in ("tiny", "reference"):
         raise ValueError(f"unknown backbone_preset {config.backbone_preset!r}")
     tiny = config.backbone_preset == "tiny"

@@ -57,12 +57,13 @@ A submanifold convolution's weight is 2-D, (C_out, k³·C_in): the block
 of columns o·C_in .. (o+1)·C_in multiplies the neighbour at offset
 (dx, dy, dz), o = ((dx + r)·k + (dy + r))·k + (dz + r), r = k // 2,
 over the grid's (x, y, z); a voxel's output sums the neighbours present
-in its own cloud.  The neighbour map of a level (Pointcept's
-`indice_key`) is built once and serves every block of the level,
-encoder and decoder alike; the stem's 5×5×5 map is its own.  A map is
-a `searchsorted` of each voxel's k³ neighbour keys in the level's
-sorted keys, and the convolution one GEMM over the gathered (n, k³·C)
-rows (an absent neighbour reads a zero row).
+in its own cloud (the grid sampling, the maps and the convolution are
+`models/sparse.py`'s, shared with MinkUNet).  The neighbour map of a
+level (Pointcept's `indice_key`) is built once and serves every block
+of the level, encoder and decoder alike; the stem's 5×5×5 map is its
+own.  A map is a `searchsorted` of each voxel's k³ neighbour keys in
+the level's sorted keys, and the convolution one GEMM over the gathered
+(n, k³·C) rows (an absent neighbour reads a zero row).
 
 The forward first plans, then computes.  The plan (grid, codes,
 orders, pooling clusters, patch layouts, neighbour maps) depends only
@@ -109,6 +110,12 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from articulated_pose_tpu_torch.models.layers import (ScheduledBatchNorm,
                                                      dropout)
+from articulated_pose_tpu_torch.models.sparse import (SubMConv3d, _cast,
+                                                     _linear, clusters,
+                                                     first_members,
+                                                     gather_rows, grid_cells,
+                                                     interleave, morton_keys,
+                                                     neighbour_map, spread3)
 from articulated_pose_tpu_torch.utils.profiling import span
 
 BN_EPS = 1e-3
@@ -117,8 +124,6 @@ ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 # the stem's and the xCPE's kernels (Pointcept's Embedding and Block)
 STEM_KERNEL = 5
 CPE_KERNEL = 3
-# the kernel radius a neighbour key leaves room for
-KEY_RADIUS = STEM_KERNEL // 2
 # the fused attention's kernels: flash-attention, else the memory-
 # efficient kernel (a masked level), built with torch; cuDNN's is left
 # out, since it builds a plan for each new shape (a level's sequence
@@ -182,22 +187,6 @@ PTV3_TINY_WIDTHS = dict(enc_channels=(16, 32, 32), enc_depths=(1, 5, 1),
 
 
 # ------------------------------------------------------------ the codes
-def spread3(v: torch.Tensor) -> torch.Tensor:
-    """Each of the low 21 bits of v moved to bit 3i (int64)."""
-    v = v & 0x1FFFFF
-    v = (v | (v << 32)) & 0x1F00000000FFFF
-    v = (v | (v << 16)) & 0x1F0000FF0000FF
-    v = (v | (v << 8)) & 0x100F00F00F00F00F
-    v = (v | (v << 4)) & 0x10C30C30C30C30C3
-    return (v | (v << 2)) & 0x1249249249249249
-
-
-def interleave(s: torch.Tensor) -> torch.Tensor:
-    """The code of spread coordinates s (..., 3, n): s[0]'s bits most
-    significant in each triple."""
-    return (s[..., 0, :] << 2) | (s[..., 1, :] << 1) | s[..., 2, :]
-
-
 def _hilbert_table() -> List[int]:
     """Skilling's transform as a state machine over a Morton code's
     octal digits, most significant first.  A state is the signed
@@ -401,74 +390,11 @@ def _orders(codes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return order, inverse
 
 
-def neighbour_map(grid: torch.Tensor, batch: torch.Tensor, depth: int,
-                  k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(n, k³) index of each voxel's neighbour at each offset (in the
-    weight's offset order), n where the cloud has no voxel there, and the
-    0-d count of neighbours present: a `searchsorted` of each neighbour's
-    key in the level's sorted keys, key = ((b·S + x')·S + y')·S + z',
-    each coordinate shifted by KEY_RADIUS into [0, S)."""
-    n = grid.shape[0]
-    S = (1 << depth) + 2 * KEY_RADIUS
-    g = grid + KEY_RADIUS
-    key = ((batch * S + g[:, 0]) * S + g[:, 1]) * S + g[:, 2]
-    sorted_key, idx = torch.sort(key)
-    d = torch.arange(-(k // 2), k // 2 + 1, device=grid.device)
-    offs = ((d[:, None, None] * S + d[None, :, None]) * S
-            + d[None, None, :]).reshape(-1)
-    q = key[:, None] + offs
-    pos = torch.searchsorted(sorted_key, q).clamp_(max=n - 1)
-    found = sorted_key[pos] == q
-    return torch.where(found, idx[pos], n), found.sum()
-
-
 # ------------------------------------------------------------- modules
-def _cast(p: torch.Tensor, dtype) -> torch.Tensor:
-    """Parameter p in `dtype`.  Where no gradient is asked for, the copy
-    is kept on p until p changes (its version or its storage): the eager
-    forward would otherwise cast every weight anew, ~400 of its ~2,500
-    operations."""
-    if p.dtype == dtype:
-        return p
-    if p.requires_grad and torch.is_grad_enabled():
-        return p.to(dtype)
-    key = (dtype, p._version, p.data_ptr())
-    kept = getattr(p, "_kept_cast", None)
-    if kept is None or kept[0] != key:
-        kept = p._kept_cast = (key, p.detach().to(dtype))
-    return kept[1]
-
-
-def _linear(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    b = None if lin.bias is None else _cast(lin.bias, dtype)
-    return F.linear(x.to(dtype), _cast(lin.weight, dtype), b)
-
-
 def _norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     return F.layer_norm(x.to(dtype), ln.normalized_shape,
                         _cast(ln.weight, dtype), _cast(ln.bias, dtype),
                         ln.eps)
-
-
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] of (n, C) x, shaped (*idx.shape, C): one `index_select`,
-    which dispatches in less host time than Python's indexing."""
-    return x.index_select(0, idx.reshape(-1)).view(*idx.shape, x.shape[1])
-
-
-class SubMConv3d(nn.Linear):
-    """A submanifold 3-D convolution of kernel k: its weight (C_out,
-    k³·C_in) over the gathered neighbours of a level's map."""
-
-    def __init__(self, cin: int, cout: int, k: int, bias: bool):
-        super().__init__(k ** 3 * cin, cout, bias=bias)
-        self.k = k
-
-    def conv(self, x: torch.Tensor, nbr: torch.Tensor, dtype
-             ) -> torch.Tensor:
-        x = x.to(dtype)
-        rows = gather_rows(torch.cat([x, x.new_zeros(1, x.shape[1])]), nbr)
-        return _linear(self, rows.view(len(x), -1), dtype)
 
 
 class SerializedAttention(nn.Module):
@@ -647,43 +573,25 @@ class PointTransformerV3Backbone(nn.Module):
 
     def _clusters(self, keys: torch.Tensor, batch_bits: int, B: int
                   ) -> Tuple[torch.Tensor, List[int]]:
-        """`unique` of the keys with one host read: each key's cluster,
-        the clusters numbered in ascending key order, and each cloud's
-        count of clusters (the cloud's index lies above `batch_bits` of
-        a key)."""
-        sorted_keys, perm = torch.sort(keys)
-        first = torch.ones_like(sorted_keys, dtype=torch.bool)
-        first[1:] = sorted_keys[1:] != sorted_keys[:-1]
-        ids = torch.cumsum(first, 0) - 1
-        cluster = torch.empty_like(ids).scatter_(0, perm, ids)
-        counts = torch.zeros(B, dtype=torch.long, device=keys.device)
-        counts.scatter_add_(0, sorted_keys >> batch_bits, first.long())
+        """`sparse.clusters` with one host read of the per-cloud
+        counts."""
+        cluster, counts = clusters(keys, batch_bits, B)
         return cluster, self._read(counts)
-
-    @staticmethod
-    def _first_members(cluster: torch.Tensor, m: int) -> torch.Tensor:
-        """The smallest index of each of the m clusters."""
-        n = len(cluster)
-        idx = torch.arange(n, device=cluster.device)
-        return torch.full((m,), n, device=cluster.device).scatter_reduce_(
-            0, cluster, idx, "amin")
 
     # --------------------------------------------------------------- plan
     def plan(self, X: torch.Tensor, shuffle) -> Plan:
         """The levels' structure; its host reads come first, before the
         device has work queued to wait for."""
         s = self.spec
-        B, N, _ = X.shape
+        B = X.shape[0]
         dev = X.device
         with span("ptv3.grid"):
             xyz = X.reshape(-1, 3).float()
-            g = torch.floor(X.float() / s.grid_size).long()
-            g = (g - g.amin(dim=1, keepdim=True)).reshape(-1, 3)
+            g, batch = grid_cells(X, s.grid_size)
             depth = int(self._read(g.max())).bit_length()
-            batch = torch.arange(B, device=dev).repeat_interleave(N)
-            z = interleave(spread3(g.t())) | (batch << (3 * depth))
-            voxel, counts = self._clusters(z, 3 * depth, B)
-            kept = self._first_members(voxel, sum(counts))
+            voxel, counts = self._clusters(morton_keys(g, batch, depth),
+                                           3 * depth, B)
+            kept = first_members(voxel, sum(counts))
             grid, vbatch = g[kept], batch[kept]
         with span("ptv3.serialize"):
             codes = serial_codes(grid, vbatch, depth, {
@@ -714,7 +622,7 @@ class PointTransformerV3Backbone(nn.Module):
         code = lv.codes >> (3 * shift)
         depth = lv.depth - shift
         cluster, counts = self._clusters(code[lv.orders[0]], 3 * depth, B)
-        head = self._first_members(cluster, sum(counts))
+        head = first_members(cluster, sum(counts))
         codes = code[:, head]
         order, inverse = _orders(codes)
         return Level(lv.grid[head] >> shift, lv.batch[head], codes, order,

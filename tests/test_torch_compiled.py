@@ -81,10 +81,10 @@ class HostReadGuard(TorchDispatchMode):
         if name in HOST_READS or name.lstrip("_").startswith("unique"):
             raise AssertionError(f"{name}: a host read or a data-dependent "
                                  "shape, which a graph cannot capture")
-        if name.startswith("index") and any(
+        if name.startswith("index") and len(args) > 1 and isinstance(
+                args[1], (list, tuple)) and any(
                 torch.is_tensor(i) and i.dtype == torch.bool
-                for i in (args[1] if len(args) > 1 else ())
-                if isinstance(args[1], (list, tuple))):
+                for i in args[1]):
             raise AssertionError(f"{name} with a boolean mask: a "
                                  "data-dependent shape")
         if name == "_to_copy" and kwargs.get("device") is not None:

@@ -42,7 +42,8 @@ Transformer layer's output (within f32 sum orders, and a bf16 rounding
 flipped in at most a few per cent of outputs) at the cell's five levels
 in bf16 and f32, at any k up to 16, with planted ties, and refuses what
 it does not take; the published-width predictor launches it in all 18
-layers.
+layers.  The MinkUNet predictor replays its fit alone, and its forward
+on the card equals the CPU's at tiny widths.
 """
 
 import numpy as np
@@ -1302,6 +1303,86 @@ def test_point_transformer_v3_predictor_replays_the_fit_alone(dev):
     widths = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
     levels, _, _ = ref.structure(P, widths, shuffle)
     assert structure_gap(pred.model.backbone.structure, levels) == 0
+
+
+def test_minkunet_predictor_replays_the_fit_alone(dev):
+    """Tiny widths on the card: the MinkUNet forward runs eagerly each
+    call and the fit is captured once and replayed, every output
+    torch.equal to the eager model and `fit_heads`; the strides and maps
+    the card planned equal the plain reference's."""
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from articulated_pose_tpu_torch.serving import (POSE_KEYS,
+                                                    PosePredictor, fit_heads)
+    from posebench.drivers.serve_minkunet_offline import structure_gap
+    from posebench.reference import minkunet as ref
+
+    cfg = NetworkConfig(backbone="minkunet", backbone_preset="tiny",
+                        compute_dtype="bfloat16")
+    pred = PosePredictor(cfg, state_dict=build_model(
+        cfg, torch.Generator().manual_seed(0)).state_dict(), device=dev)
+    clouds = np.random.RandomState(7).rand(3, 4, 512, 3).astype(
+        np.float32) - 0.5
+    d = pred.draws(4)
+    leaves = torch.utils._pytree.tree_leaves
+    for c in clouds:
+        got = pred._run(c)[0]
+        P = torch.from_numpy(c).to(dev)
+        with torch.no_grad():
+            heads = pred.model(P)
+            want = fit_heads({k: heads[k] for k in POSE_KEYS}, P, d.part,
+                             d.joint, pred.pose_cfg)
+        for a, b in zip(leaves(got["fits"]), leaves(want["fits"])):
+            assert torch.equal(a, b)
+        assert torch.equal(got["segmentation"], want["segmentation"])
+        for k, v in heads.items():
+            assert torch.equal(got["pred"][k], v)
+    assert pred._programs[0].captures == 1
+    assert pred.model.backbone.host_syncs == 2
+    spec = pred.model.backbone.spec
+    widths = dict(planes=spec.planes, layers=spec.layers,
+                  init_dim=spec.init_dim, grid_size=spec.grid_size)
+    strides, _, _ = ref.structure(P, widths)
+    assert structure_gap(pred.model.backbone.structure, strides) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_minkunet_forward_on_the_card_equals_the_cpus(dev, dtype):
+    """The served MinkUNet forward at tiny widths, card against CPU on
+    one state dict: f32 within the sum orders of other GEMM kernels
+    (rtol 1e-4 / atol 5e-5, as the CPU tests hold it to the reference;
+    TF32 stays off), bf16 within the cell's heads_ratio limit against
+    the CPU's f32 forward in units of the bf16 CPU forward's own gap;
+    the structure and the counters exact."""
+    from articulated_pose_tpu_torch.config import NetworkConfig
+    from articulated_pose_tpu_torch.models.ancsh import build_model
+    from posebench import compare
+
+    cfg = NetworkConfig(backbone="minkunet", backbone_preset="tiny",
+                        compute_dtype=dtype)
+    sd = build_model(cfg, torch.Generator().manual_seed(1)).state_dict()
+    X = torch.from_numpy(np.random.RandomState(8).rand(3, 1024, 3).astype(
+        np.float32) - 0.5)
+    outs, counters = {}, {}
+    for where in ("cpu", "cuda", "cpu_f32"):
+        c = cfg.replace(compute_dtype="float32") if where == "cpu_f32" else cfg
+        m = build_model(c)
+        m.load_state_dict(sd)
+        m = m.to("cpu" if where != "cuda" else dev).eval()
+        with torch.no_grad():
+            out = m(X.to("cpu" if where != "cuda" else dev))
+        outs[where] = {k: v.float().cpu().numpy() for k, v in out.items()}
+        bb = m.backbone
+        counters[where] = (bb.level_points, bb.conv_pairs, bb.stem_pairs,
+                           [s["counts"] for s in bb.structure])
+    assert counters["cuda"] == counters["cpu"]
+    if dtype == "float32":
+        for k, v in outs["cpu"].items():
+            np.testing.assert_allclose(outs["cuda"][k], v, rtol=1e-4,
+                                       atol=5e-5)
+    else:
+        assert compare.heads_ratio(outs["cuda"], outs["cpu_f32"],
+                                   outs["cpu"]) <= 3.0
 
 
 # ------------------------------------------------------------- joint_fit
